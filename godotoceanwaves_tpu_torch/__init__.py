@@ -1,0 +1,25 @@
+"""godotoceanwaves_tpu_torch — the PyTorch / CUDA port of godotoceanwaves_tpu.
+
+Mirrors the JAX package's module layout and public names. The per-frame
+step (modulate -> Hermitian-packed 2D IFFT -> unpack + foam) runs on a CUDA
+device through a hand-written kernel pair (`csrc/fused_step.cu`), and on the
+CPU through its plain PyTorch version. Imports `torch`, never `jax`.
+"""
+from . import models, ops
+from .models import (
+    CascadeParams,
+    Ocean,
+    OceanMaps,
+    OceanState,
+    SimConfig,
+    default_cascades,
+    init_state,
+    simulate,
+    step,
+)
+
+__version__ = "0.1.0"
+__all__ = [
+    "ops", "models", "CascadeParams", "Ocean", "OceanMaps", "OceanState",
+    "SimConfig", "default_cascades", "init_state", "simulate", "step",
+]

@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card. Every test here is marked `cuda` and
+skips where no CUDA device is present.
+
+This file imports only numpy, torch and the port, so it runs where the JAX
+package cannot be imported. From the checkout root on a machine with the card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Tolerances are those of the kernel-vs-plain check in chip_smoke.py: fp32
+maps <= 1e-4 relative RMS, 2-byte maps <= 1e-3 (displacement, relative) and
+<= 2e-3 (normal, RMS), foam <= 1e-4 RMS.
+"""
+import numpy as np
+import pytest
+import torch
+
+import godotoceanwaves_tpu_torch as T
+from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
+from godotoceanwaves_tpu_torch.ops import fused_step
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def rel_rms(got, ref) -> float:
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt().clamp_min(1e-12))
+
+
+def rms(got, ref) -> float:
+    return float((got.double().cpu() - ref.double().cpu()).pow(2).mean().sqrt())
+
+
+def assert_close(got, want, two_byte: bool):
+    (d, nm, foam), (wd, wn, wfoam) = got, want
+    if two_byte:
+        assert rel_rms(d, wd) <= 1e-3 and rms(nm, wn) <= 2e-3
+    else:
+        assert rel_rms(d, wd) <= 1e-4 and rel_rms(nm, wn) <= 1e-4
+    assert rms(foam, wfoam) <= 1e-4
+
+
+def inputs(n: int, dev, multi: bool):
+    params = T.default_cascades(device=dev)
+    state = T.init_state(T.SimConfig(map_size=n), params)
+    rng = np.random.default_rng(n)
+    foam = torch.from_numpy(rng.uniform(0, 0.5, (3, n, n)).astype(np.float32)).to(dev)
+    grow, decay = _foam_rates(params, 0.1)
+    scal = fused_step.pack_scalars(state.time + 0.1, params.tile_length, params.whitecap,
+                                   grow, decay, dt=0.1 if multi else None)
+    return state.h0, state.h0nc, state.omega, foam, scal
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_multi_step_kernel_matches_plain(card, dtype):
+    args = inputs(128, card, multi=True)
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_cascade_multi_step(*args, num_frames=2, map_dtype=DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 4
+    want = fused_step.fused_cascade_multi_step_reference(*args, num_frames=2,
+                                                         map_dtype=DTYPES[dtype])
+    assert got[0].dtype == DTYPES[dtype] and got[0].shape == (3, 2, 3, 128, 128)
+    for k in range(2):
+        assert_close((got[0][:, k], got[1][:, k], got[2]),
+                     (want[0][:, k], want[1][:, k], want[2]), two_byte=dtype != "float32")
+
+
+@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+def test_step_kernel_matches_plain_across_sizes(card, n):
+    args = inputs(n, card, multi=False)
+    got = fused_step.fused_cascade_step(*args, map_dtype=torch.float32)
+    want = fused_step.fused_cascade_step_reference(*args, map_dtype=torch.float32)
+    assert_close(got, want, two_byte=False)
+
+
+@pytest.mark.parametrize("n", [8, 2048])
+def test_cuda_wrapper_raises_outside_its_sizes(card, n):
+    z = lambda *shape: torch.zeros(shape, device=card)
+    with pytest.raises(NotImplementedError, match="pallas_strip"):
+        fused_step.fused_cascade_step(z(1, 2, n, n), z(1, 2, n, n), z(1, n, n), z(1, n, n),
+                                      z(1, 1, fused_step.NUM_SCALARS))
+
+
+def test_ocean_on_card_matches_ocean_on_cpu(card):
+    """Five updates and a 3-frame multi_step through the session on both devices."""
+    from godotoceanwaves_tpu_torch.models.ocean import multi_step
+    sessions = [T.Ocean(map_size=64, updates_per_second=0, device=d) for d in (card, "cpu")]
+    for o in sessions:
+        for _ in range(5):
+            o.update(0.02)
+        o.state, o.maps = multi_step(o.config, o.state, o.params, 0.02, 3)
+    gpu, cpu = sessions
+    assert_close((gpu.maps.displacement, gpu.maps.normal, gpu.state.foam),
+                 (cpu.maps.displacement, cpu.maps.normal, cpu.state.foam), two_byte=False)
+    assert torch.equal(gpu.state.time.cpu(), cpu.state.time)

@@ -1,0 +1,23 @@
+"""The PyTorch port runs with JAX, flax and the JAX package unimportable."""
+import subprocess
+import sys
+import textwrap
+
+
+def test_port_imports_and_steps_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import godotoceanwaves_tpu_torch as T
+        from godotoceanwaves_tpu_torch.models.ocean import multi_step
+        ocean = T.Ocean(map_size=16, updates_per_second=0, device="cpu")
+        maps = ocean.update(0.02)
+        ocean.state, maps = multi_step(ocean.config, ocean.state, ocean.params, 0.02, 2)
+        assert maps.displacement.shape == (3, 3, 16, 16)
+        assert bool(maps.displacement.isfinite().all())
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
