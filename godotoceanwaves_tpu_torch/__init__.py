@@ -2,8 +2,10 @@
 
 Mirrors the JAX package's module layout and public names. The per-frame
 step (modulate -> Hermitian-packed 2D IFFT -> unpack + foam) runs on a CUDA
-device through a hand-written kernel pair (`csrc/fused_step.cu`), and on the
-CPU through its plain PyTorch version. Imports `torch`, never `jax`.
+device through hand-written kernels (`csrc/fused_step.cu` for N <= 1024,
+`csrc/strip_step.cu` for 1024 < N <= 8192, `csrc/planes_fft.cu` as the
+staged path's FFT), and on the CPU through their plain PyTorch versions.
+Imports `torch`, never `jax`.
 """
 from . import models, ops
 from .models import (

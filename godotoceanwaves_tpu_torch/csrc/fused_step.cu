@@ -31,10 +31,17 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include "texel.cuh"
+
 namespace {
 
-enum { S_TIME = 0, S_LX, S_LY, S_WHITECAP, S_GROW, S_DECAY, S_DT, NUM_SCALARS = 8 };
-constexpr int kLayers = 4;
+using texel::kLayers;
+using texel::NUM_SCALARS;
+using texel::S_DECAY;
+using texel::S_DT;
+using texel::S_GROW;
+using texel::S_TIME;
+using texel::S_WHITECAP;
 // 4 layers x N/2 butterflies per stage, over N/4 threads.
 constexpr int kButterfliesPerThread = 8;
 constexpr int kMinN = 16;
@@ -101,38 +108,15 @@ __global__ void rows_kernel(const float* __restrict__ h0,
     const float* sc = scal + c * NUM_SCALARS;
     // frame k modulates at S_TIME + k * S_DT, rounded as two fp32 ops
     const float t = __fadd_rn(sc[S_TIME], __fmul_rn(static_cast<float>(frame), sc[S_DT]));
-    const float two_pi = 6.283185307179586f;
-    const float half_n = static_cast<float>(n) * 0.5f;
-    const float dkx = __fdiv_rn(two_pi, sc[S_LX]);
-    const float ky = __fmul_rn(static_cast<float>(y) - half_n, __fdiv_rn(two_pi, sc[S_LY]));
+    const texel::Row r = texel::row_at(h0, h0nc, omega, sc, c, y, n, t);
 
     fill_twiddles(tw, n);
 
-    const size_t plane = static_cast<size_t>(n) * n;
-    const size_t row = static_cast<size_t>(y) * n;
-    const float* h0r = h0 + 2 * c * plane + row;
-    const float* h0i = h0r + plane;
-    const float* ncr = h0nc + 2 * c * plane + row;
-    const float* nci = ncr + plane;
-    const float* om = omega + c * plane + row;
     for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        const float kx = __fmul_rn(static_cast<float>(x) - half_n, dkx);
-        const float k = __fadd_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(kx, kx), __fmul_rn(ky, ky))), 1e-6f);
-        float s, co;
-        sincosf(__fmul_rn(om[x], t), &s, &co);
-        const float ar = h0r[x], ai = h0i[x], br = ncr[x], bi = nci[x];
-        // h = h0 e^{i w t} + conj(h0(-k)) e^{-i w t}  (spectrum_modulate.glsl:62-68)
-        const float hr = co * (ar + br) + s * (bi - ai);
-        const float hi = s * (ar - br) + co * (ai + bi);
-        const float kux = __fdiv_rn(kx, k);
-        const float kuy = __fdiv_rn(ky, k);
-        // packed layers, closed real forms of spectrum_modulate.glsl:71-89
-        const float a0 = 1.0f + kuy;
-        buf[x] = make_float2(-hi * a0, hr * a0);
-        buf[n + x] = make_float2(-hi * kux - hr * ky, hr * kux - hi * ky);
-        const float a2 = kx - ky * kuy;
-        buf[2 * n + x] = make_float2(-hi * a2, hr * a2);
-        buf[3 * n + x] = make_float2(kux * (hi * ky - hr * kx), -kux * (hr * ky + hi * kx));
+        float2 v[kLayers];
+        texel::modulate(r, x, v);
+#pragma unroll
+        for (int l = 0; l < kLayers; ++l) buf[l * n + x] = v[l];
     }
     __syncthreads();
     stockham_layers(buf, tw, n, log2n);
@@ -143,15 +127,6 @@ __global__ void rows_kernel(const float* __restrict__ h0,
         out[2 * k] = make_float4(l0.x, l0.y, l1.x, l1.y);
         out[2 * k + 1] = make_float4(l2.x, l2.y, l3.x, l3.y);
     }
-}
-
-template <typename T> __device__ __forceinline__ T to_map(float v);
-template <> __device__ __forceinline__ float to_map<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 to_map<__nv_bfloat16>(float v) {
-    return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half to_map<__half>(float v) {
-    return __float2half_rn(v);
 }
 
 template <typename OutT>
@@ -195,26 +170,8 @@ __global__ void cols_kernel(const float* __restrict__ scratch,
     const float* fi = foam_in + c * plane + row;
     float* fo = foam_out + c * plane + row;
     for (int m = threadIdx.x; m < n; m += blockDim.x) {
-        // ifftshift (-1)^(x+y), fft_unpack.glsl:37-38
-        const float sign = ((kx + m) & 1) ? -1.0f : 1.0f;
-        const float2 l0 = buf[m], l1 = buf[n + m], l2 = buf[2 * n + m], l3 = buf[3 * n + m];
-        const float hx = l0.x * sign, hy = l0.y * sign;
-        const float hz = l1.x * sign, dhy_dx = l1.y * sign;
-        const float dhy_dz = l2.x * sign, dhx_dx = l2.y * sign;
-        const float dhz_dz = l3.x * sign, dhz_dx = l3.y * sign;
-        // Jacobian foam, fft_unpack.glsl:58-64
-        const float jac = (1.0f + dhx_dx) * (1.0f + dhz_dz) - dhz_dx * dhz_dx;
-        const float foam_factor = -fminf(0.0f, jac - whitecap);
-        float foam = fi[m] * keep + foam_factor * grow;
-        foam = fminf(fmaxf(foam, 0.0f), 1.0f);
-        d[m] = to_map<OutT>(hx);
-        d[plane + m] = to_map<OutT>(hy);
-        d[2 * plane + m] = to_map<OutT>(hz);
-        nm[m] = to_map<OutT>(__fdiv_rn(dhy_dx, 1.0f + fabsf(dhx_dx)));
-        nm[plane + m] = to_map<OutT>(__fdiv_rn(dhy_dz, 1.0f + fabsf(dhz_dz)));
-        nm[2 * plane + m] = to_map<OutT>(dhx_dx);
-        nm[3 * plane + m] = to_map<OutT>(foam);
-        fo[m] = foam;
+        fo[m] = texel::unpack<OutT>(buf[m], buf[n + m], buf[2 * n + m], buf[3 * n + m], kx, m,
+                                    fi[m], keep, whitecap, grow, d, nm, plane);
     }
 }
 

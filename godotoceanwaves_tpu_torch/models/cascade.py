@@ -6,10 +6,14 @@ cascade axis) with the same 12 fields, defaults and setter clamps as the
 reference resource `WaveCascadeParameters`
 (assets/water/wave_cascade_parameters.gd:7-35).
 
-`SimConfig` keeps the static configuration. The JAX package's `fft_impl`
-tiers (matmul / direct / fourstep / pallas) exist only because `jnp.fft` is
-missing on the TPU; here there is one plain tier, `torch.fft`, and the fused
-CUDA step kernel (`ops/fused_step.py`).
+`SimConfig` keeps the static configuration and routes a step by map size,
+as the JAX package's gates do (its cascade.py:199-249), with the card's
+ranges: the fused kernel pair (`ops/fused_step.py`) for 16 <= N <= 1024, the
+strip kernel pair (`ops/strip_step.py`) for 1024 < N <= 8192, and the staged
+modules for every other N or with `fused="never"`. The JAX package's
+`fft_impl` tiers (matmul / direct / fourstep) exist only because `jnp.fft`
+is missing on the TPU; the staged path here runs the planes IFFT kernel
+(`ops/planes_fft.py`) where it covers N, `torch.fft` elsewhere.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from ..ops import fused_step, strip_step
 
 
 @dataclasses.dataclass
@@ -163,16 +169,17 @@ _MAP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class SimConfig:
     """Static simulation configuration.
 
-    map_size: FFT/map resolution, a power of two >= 4. The fused CUDA step
-      covers 16..1024; larger maps need `fused="never"` until the strip
-      kernel is ported.
+    map_size: FFT/map resolution, a power of two >= 4. It picks the step
+      tier (`step_tier`): fused for 16..1024, strip for 2048..8192, staged
+      for the rest.
     depth / g: physics constants (wave_generator.gd:5-6).
     map_dtype: "float32" | "bfloat16" | "float16" output maps (fp32 FFT core
       and fp32 foam either way).
     fold_sign: fold the (-1)^(x+y) ifftshift into the staged FFT instead of
       applying it at unpack (same result).
-    fused: "auto" runs the fused step (the CUDA kernel on a CUDA device, its
-      plain version on the CPU); "never" runs the staged modules.
+    fused: "auto" runs the fused or strip step where map_size falls in its
+      range (the CUDA kernels on a CUDA device, their plain version on the
+      CPU); "never" runs the staged modules at every size.
     """
     map_size: int = 1024
     depth: float = 20.0
@@ -196,4 +203,17 @@ class SimConfig:
         return _MAP_DTYPES[self.map_dtype]
 
     def use_fused_step(self) -> bool:
-        return self.fused != "never"
+        """Whether `step` runs the fused kernel pair: 16 <= N <= 1024."""
+        return (self.fused != "never"
+                and fused_step.MIN_N <= self.map_size <= fused_step.MAX_N)
+
+    def use_strip_step(self) -> bool:
+        """Whether `step` runs the strip kernel pair: 1024 < N <= 8192."""
+        return (self.fused != "never"
+                and strip_step.MIN_N <= self.map_size <= strip_step.MAX_N)
+
+    def step_tier(self) -> str:
+        """The path a step takes: "fused", "strip" or "staged"."""
+        if self.use_fused_step():
+            return "fused"
+        return "strip" if self.use_strip_step() else "staged"

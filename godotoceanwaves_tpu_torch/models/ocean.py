@@ -13,9 +13,12 @@ the persistent foam, fft_unpack.glsl:61-64) lives in an explicit
 `OceanState`. Functions return new tensors and never write into the state
 they were given, so a kernel never reads a buffer that the same step writes.
 
-With `config.fused != "never"` a step runs `ops.fused_step`: the CUDA kernel
-pair on a CUDA device, its plain version on the CPU. Otherwise it runs the
-staged modules (modulate -> fft -> unpack).
+A step takes one of three tiers, by map size (`SimConfig.step_tier`): the
+fused kernel pair (`ops.fused_step`, 16 <= N <= 1024), the strip kernel pair
+(`ops.strip_step`, 1024 < N <= 8192), or the staged modules (modulate ->
+planes IFFT -> unpack) for every other N and with `fused="never"`. On a CUDA
+device the tiers launch their kernels; on the CPU they run the kernels'
+plain PyTorch versions.
 
 Session layer
 -------------
@@ -32,7 +35,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..ops import fft, fused_step, initial_state, spectra
+from ..ops import fft, fused_step, initial_state, planes_fft, spectra, strip_step
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
 from .cascade import CascadeParams, SimConfig, default_cascades, stack_cascades
 
@@ -135,12 +138,17 @@ def _synthesize(config: SimConfig, h0, h0nc, omega, foam, p: CascadeParams, t, d
     """Maps + new foam for the cascades of `p` at modulation time `t`."""
     grow, decay = _foam_rates(p, dt)
     map_dtype = config.resolved_map_dtype()
-    if config.use_fused_step():
+    tier = config.step_tier()
+    if tier != "staged":
         scal = fused_step.pack_scalars(t, p.tile_length, p.whitecap, grow, decay)
-        return fused_step.fused_cascade_step(h0, h0nc, omega, foam, scal, map_dtype=map_dtype)
+        kernel_step = (fused_step.fused_cascade_step if tier == "fused"
+                       else strip_step.strip_cascade_step)
+        return kernel_step(h0, h0nc, omega, foam, scal, map_dtype=map_dtype)
     layers = modulate_ops.modulate_planes(h0, h0nc, p.tile_length, config.depth, t,
                                           config.g, omega=omega)
-    fields = fft.ifft2_packed_planes(layers, fold_sign=config.fold_sign)
+    covered = planes_fft.covers(config.map_size)
+    ifft = planes_fft.ifft2_packed_planes if covered else fft.ifft2_packed_planes
+    fields = ifft(layers.flatten(0, 1), fold_sign=config.fold_sign).reshape(layers.shape)
     col = lambda x: x[:, None, None]
     return unpack_ops.unpack_planes(fields, foam, col(p.whitecap), col(grow), col(decay),
                                     pre_shifted=config.fold_sign, map_dtype=map_dtype)
@@ -161,9 +169,9 @@ def step_frames(config: SimConfig, state: OceanState, params: CascadeParams, dt,
                 num_frames: int) -> tuple[OceanState, OceanMaps]:
     """`num_frames` consecutive frames; maps carry a per-frame axis (C, K, ...).
 
-    Fused path: frame k modulates at t0 + k*dt with t0 = time + dt, and the
-    final time is time + dt*K (the multi-frame kernel's semantics). Staged
-    path: a loop of `step`.
+    Fused tier: frame k modulates at t0 + k*dt with t0 = time + dt, and the
+    final time is time + dt*K (the multi-frame kernel's semantics). Strip
+    and staged tiers: a loop of `step`.
     """
     dt = _f32(dt)
     if config.use_fused_step() and num_frames > 1:

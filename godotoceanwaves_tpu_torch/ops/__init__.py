@@ -5,9 +5,12 @@ Stage map (reference file -> module):
   spectrum_modulate.glsl -> modulate
   fft_butterfly/fft_compute/transpose.glsl -> fft (torch.fft)
   fft_unpack.glsl        -> unpack
-  all of the per-frame chain -> fused_step (csrc/fused_step.cu on the card)
+  all of the per-frame chain -> fused_step (csrc/fused_step.cu on the card, N <= 1024)
+                             -> strip_step (csrc/strip_step.cu, 1024 < N <= 8192)
+  the staged path's 2D IFFT  -> planes_fft (csrc/planes_fft.cu, 16 <= N <= 8192)
 """
-from . import fft, fused_step, grid, initial_state, modulate, rng, spectra, unpack
+from . import (fft, fused_step, grid, initial_state, modulate, planes_fft, rng, spectra,
+               strip_step, unpack)
 
-__all__ = ["fft", "fused_step", "grid", "initial_state", "modulate", "rng",
-           "spectra", "unpack"]
+__all__ = ["fft", "fused_step", "grid", "initial_state", "modulate", "planes_fft", "rng",
+           "spectra", "strip_step", "unpack"]

@@ -1,9 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-`csrc/*.cu` is compiled with `nvcc` for sm_90a into a shared library with a
-plain C interface, at first use (never at import), into the git-ignored
-`build/` directory beside the package, and loaded with ctypes. The library
-name carries a hash of the sources, so an edited kernel is rebuilt.
+Each `csrc/*.cu` is compiled with `nvcc` for sm_90a, all of them at once in
+parallel processes, and the objects are linked into one shared library with
+a plain C interface. That happens at first use (never at import), in the
+git-ignored `build/` directory beside the package, and the library is loaded
+with ctypes. The library name carries a hash of the sources and headers, so
+an edited kernel is rebuilt.
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -29,6 +32,15 @@ _SIGNATURES = {
     # fused_step_cols(scratch, foam_in, scal, disp, normal, foam_out, c, n,
     #                 dtype, disp_cstride, norm_cstride, stream)
     "fused_step_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    # strip_step_rows(h0, h0nc, omega, scal, scratch, c, n, stream)
+    "strip_step_rows": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # strip_step_cols(scratch, foam_in, scal, disp, normal, foam_out, c, n,
+    #                 dtype, disp_cstride, norm_cstride, stream)
+    "strip_step_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    # planes_fft_rows(x, scratch, l, n, stream)
+    "planes_fft_rows": (_P, _P, _I, _I, _P),
+    # planes_fft_cols(scratch, out, l, n, fold_sign, stream)
+    "planes_fft_cols": (_P, _P, _I, _I, _I, _P),
 }
 
 
@@ -47,7 +59,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgodotocean_kernels_{h.hexdigest()[:12]}.so"
 
@@ -58,16 +70,26 @@ def compile_library() -> tuple[Path, str]:
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)   # atomic: another process never loads a half-written library
-    return path, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]   # every process ends here
+        for cmd, proc, out in zip(compiles, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        text = "".join(outs)
+        link = [nvcc, "-shared", "-o", str(Path(tmp) / "lib.so"), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        # atomic: another process never loads a half-written library
+        os.replace(Path(tmp) / "lib.so", path)
+    return path, text
 
 
 @functools.lru_cache(maxsize=None)

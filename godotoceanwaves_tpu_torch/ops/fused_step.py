@@ -33,7 +33,7 @@ MIN_N, MAX_N = 16, 1024
 # Kernel launches (row and column pass each count one) since the last reset.
 LAUNCHES = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def pack_scalars(time, tile_length, whitecap, grow, decay, dt=None) -> torch.Tensor:
@@ -50,7 +50,7 @@ def pack_scalars(time, tile_length, whitecap, grow, decay, dt=None) -> torch.Ten
     ], dim=-1).to(torch.float32)[:, None, :]
 
 
-def _check_inputs(h0, h0nc, omega, foam, scalars, map_dtype, num_frames):
+def check_inputs(h0, h0nc, omega, foam, scalars, map_dtype, num_frames):
     c, two, n, n2 = h0.shape
     if two != 2 or n != n2:
         raise ValueError(f"h0 must be (C, 2, N, N), got {tuple(h0.shape)}")
@@ -66,8 +66,8 @@ def _check_inputs(h0, h0nc, omega, foam, scalars, map_dtype, num_frames):
             raise ValueError(f"{name} is on {t.device}, h0 on {h0.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if map_dtype not in _DTYPE_CODES:
-        raise TypeError(f"map_dtype must be one of {list(_DTYPE_CODES)}, got {map_dtype}")
+    if map_dtype not in DTYPE_CODES:
+        raise TypeError(f"map_dtype must be one of {list(DTYPE_CODES)}, got {map_dtype}")
     if num_frames < 1:
         raise ValueError(f"num_frames must be >= 1, got {num_frames}")
 
@@ -77,6 +77,8 @@ def _reference_frame(h0, h0nc, omega, foam, scalars, frame: int, map_dtype):
     # frame k modulates at S_TIME + k * S_DT, two fp32 roundings like the kernel
     t = s[:, S_TIME] + s[:, S_DT] * float(frame)
     layers = modulate.modulate_planes(h0, h0nc, s[:, S_LX:S_LY + 1], None, t, omega=omega)
+    # the plain torch.fft version, never the planes kernel: this is what the
+    # kernels (K1 here, K4 in strip_step) are held against
     fields = fft.ifft2_packed_planes(layers, fold_sign=True)
     col = lambda i: s[:, i, None, None]
     return unpack.unpack_planes(fields, foam, col(S_WHITECAP), col(S_GROW), col(S_DECAY),
@@ -106,9 +108,9 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
             f"the fused CUDA step covers power-of-two N in [{MIN_N}, {MAX_N}], got "
-            f"N={n}; larger maps need the strip kernel (godotoceanwaves_tpu/ops/"
-            f"pallas_strip.py strip_cascade_step), not yet ported: use "
-            f"SimConfig(fused='never')")
+            f"N={n}; N in (1024, 8192] is the strip kernel's (ops/strip_step.py, the "
+            f"port of godotoceanwaves_tpu/ops/pallas_strip.py), other sizes take the "
+            f"staged path (SimConfig.step_tier)")
     from . import _build
     lib = _build.load()
     dev = h0.device
@@ -130,7 +132,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
             rc = lib.fused_step_cols(
                 scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(),
                 d_k.data_ptr(), n_k.data_ptr(), foam_out.data_ptr(), c, n,
-                _DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), stream)
+                DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), stream)
             if rc:
                 raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
             LAUNCHES += 1
@@ -138,7 +140,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
 
 
 def _dispatch(h0, h0nc, omega, foam, scalars, *, num_frames, map_dtype, multi):
-    _check_inputs(h0, h0nc, omega, foam, scalars, map_dtype, num_frames)
+    check_inputs(h0, h0nc, omega, foam, scalars, map_dtype, num_frames)
     if h0.device.type == "cuda":
         return _launch(h0, h0nc, omega, foam, scalars, num_frames=num_frames,
                        map_dtype=map_dtype, multi=multi)

@@ -16,7 +16,7 @@ import torch
 
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
-from godotoceanwaves_tpu_torch.ops import fused_step
+from godotoceanwaves_tpu_torch.ops import fft, fused_step, planes_fft, strip_step
 
 pytestmark = pytest.mark.cuda
 
@@ -48,11 +48,11 @@ def assert_close(got, want, two_byte: bool):
     assert rms(foam, wfoam) <= 1e-4
 
 
-def inputs(n: int, dev, multi: bool):
-    params = T.default_cascades(device=dev)
+def inputs(n: int, dev, multi: bool, cascades: int = 3):
+    params = T.default_cascades(device=dev).map(lambda x: x[:cascades])
     state = T.init_state(T.SimConfig(map_size=n), params)
     rng = np.random.default_rng(n)
-    foam = torch.from_numpy(rng.uniform(0, 0.5, (3, n, n)).astype(np.float32)).to(dev)
+    foam = torch.from_numpy(rng.uniform(0, 0.5, (cascades, n, n)).astype(np.float32)).to(dev)
     grow, decay = _foam_rates(params, 0.1)
     scal = fused_step.pack_scalars(state.time + 0.1, params.tile_length, params.whitecap,
                                    grow, decay, dt=0.1 if multi else None)
@@ -102,3 +102,72 @@ def test_ocean_on_card_matches_ocean_on_cpu(card):
     assert_close((gpu.maps.displacement, gpu.maps.normal, gpu.state.foam),
                  (cpu.maps.displacement, cpu.maps.normal, cpu.state.foam), two_byte=False)
     assert torch.equal(gpu.state.time.cpu(), cpu.state.time)
+
+
+@pytest.mark.parametrize("n,dtype", [(2048, "float32"), (2048, "bfloat16"), (2048, "float16"),
+                                     (4096, "float32")])
+def test_strip_kernel_matches_plain(card, n, dtype):
+    args = inputs(n, card, multi=False, cascades=1)
+    before = strip_step.LAUNCHES
+    got = strip_step.strip_cascade_step(*args, map_dtype=DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert strip_step.LAUNCHES == before + 2
+    want = strip_step.strip_cascade_step_reference(*args, map_dtype=DTYPES[dtype])
+    assert got[0].dtype == DTYPES[dtype] and got[0].shape == (1, 3, n, n)
+    assert_close(got, want, two_byte=dtype != "float32")
+
+
+@pytest.mark.parametrize("n", [16, 256, 2048, 8192])
+@pytest.mark.parametrize("fold_sign", [False, True])
+def test_planes_kernel_matches_plain(card, n, fold_sign):
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, 2, n, n),
+                                                                  dtype=np.float32)).to(card)
+    before = planes_fft.LAUNCHES
+    got = planes_fft.ifft2_packed_planes(x, fold_sign=fold_sign)
+    torch.cuda.synchronize()
+    assert planes_fft.LAUNCHES == before + 2
+    assert rel_rms(got, fft.ifft2_packed_planes(x, fold_sign=fold_sign)) <= 1e-4
+
+
+def test_new_cuda_wrappers_raise_outside_their_sizes(card):
+    z = lambda *shape: torch.zeros(shape, device=card)
+    with pytest.raises(NotImplementedError, match="strip"):
+        strip_step.strip_cascade_step(z(1, 2, 1024, 1024), z(1, 2, 1024, 1024), z(1, 1024, 1024),
+                                      z(1, 1024, 1024), z(1, 1, fused_step.NUM_SCALARS))
+    with pytest.raises(NotImplementedError, match="planes"):
+        planes_fft.ifft2_packed_planes(z(4, 2, 8, 8))
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_small_maps_run_on_card(card, n):
+    """Sizes under the fused kernel's take the staged path (torch.fft)."""
+    sessions = [T.Ocean(map_size=n, updates_per_second=0, device=d) for d in (card, "cpu")]
+    for o in sessions:
+        for _ in range(3):
+            o.update(0.02)
+    gpu, cpu = sessions
+    assert gpu.config.step_tier() == "staged"
+    assert_close((gpu.maps.displacement, gpu.maps.normal, gpu.state.foam),
+                 (cpu.maps.displacement, cpu.maps.normal, cpu.state.foam), two_byte=False)
+
+
+def test_config5_session_runs_strip_and_staged_kernels(card):
+    """Config 5's shape (2 cascades at 2048^2, bf16 maps): the default session
+    launches K4 only, the fused="never" session K2 only, and they agree."""
+    kw = dict(params=T.models.dual_wind_swell_cascades(device=card), map_size=2048,
+              map_dtype="bfloat16", updates_per_second=0, device=card)
+    counts = []
+    sessions = []
+    for fused in ("auto", "never"):
+        before = (strip_step.LAUNCHES, planes_fft.LAUNCHES, fused_step.LAUNCHES)
+        o = T.Ocean(fused=fused, **kw)
+        for _ in range(3):
+            o.update(0.02)
+        torch.cuda.synchronize()
+        counts.append(tuple(a - b for a, b in zip(
+            (strip_step.LAUNCHES, planes_fft.LAUNCHES, fused_step.LAUNCHES), before)))
+        sessions.append(o)
+    assert counts == [(6, 0, 0), (0, 6, 0)]
+    strip, staged = sessions
+    assert_close((strip.maps.displacement, strip.maps.normal, strip.state.foam),
+                 (staged.maps.displacement, staged.maps.normal, staged.state.foam), two_byte=True)
