@@ -29,6 +29,22 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    full-resolution, native-dtype and preview legs.
 9. Timing with CUDA events: K4 vs plain ms/frame at config 5, with its row
    and column passes alone; K2 vs torch.fft at 16 x 1024^2 and 8 x 2048^2.
+10. The LOD gradient-tap kernel (K5) against its plain version (the einsum
+    taps): a random case (3 cascades at 1024^2, 4 levels, 16 bands whose
+    levels hold 0, the bicubic-blending coarse level and the skip value)
+    and the gradient of a real 640x360 frame (`_debug_stage="grad"`).
+11. The heightfield-march kernel (K6) against its plain version: a G = 256
+    table from real maps and 640x360 rays, 32 steps and 2 refine rounds.
+12. The render path at bench.py's render settings: `Ocean(map_size=1024,
+    map_dtype="bfloat16")` with 3 default cascades, the "interactive" tier,
+    environment on, and the three legs 640x360, 1280x720 at render_scale=2
+    and 1280x720 native. Launch counts (one K5 launch a frame, no K6 on the
+    default fan march; one march_impl="pallas" frame launches K6), images
+    finite in [0, 1] with a plausible sky share, kernel route vs plain
+    route, one frame per leg under `torch.cuda.set_sync_debug_mode("error")`.
+13. Render timing with CUDA events: ms/frame of the three legs, the
+    `_debug_stage` split at 640x360 and 720p native, K5 and K6 vs their
+    plain versions and K6 vs the fan march, peak device memory.
 
 Prints a JSON line of the kernels, the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}. Exits non-zero, with no result
@@ -54,6 +70,10 @@ KERNELS = {
                replaces="godotoceanwaves_tpu/ops/pallas_fft.py:345"),
     "K4": dict(name="strip_step (rows + cols)", source=CSRC + "strip_step.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_strip.py:188"),
+    "K5": dict(name="lod_tap", source=CSRC + "tap.cu",
+               replaces="godotoceanwaves_tpu/ops/pallas_tap.py:162"),
+    "K6": dict(name="march_heightfield", source=CSRC + "march.cu",
+               replaces="godotoceanwaves_tpu/ops/pallas_march.py:152"),
 }
 
 # Tolerances. fp32 maps: the kernels and torch.fft differ only in summation
@@ -76,6 +96,18 @@ PLANES_SIZES = (16, 1024, 2048, 8192)   # phase 7
 PLANES_L = 8
 CONFIG5_UPDATES = 48         # bench.py config 5's frame count
 STREAM_FRAMES = 6
+RENDER_MAP = 1024            # phases 10-13 (bench.py's render leg: 3 cascades, bf16)
+# bench.py:284-315: the "interactive" tier (viewport.py:37-43), environment on
+RENDER_TIER = dict(quality="high", march_steps=32, bisect_steps=6, shade_res=2,
+                   bracket_res=128, invert_res=256, environment=True)
+RENDER_LEGS = {"640x360": dict(width=640, height=360),
+               "1280x720 render_scale=2": dict(width=1280, height=720, render_scale=2),
+               "1280x720 native": dict(width=1280, height=720)}
+CAM0 = (0.0, 12.0, 0.0)
+TOL_TAP = 5e-5               # max abs, K5 vs plain (tests/test_pallas_tap.py:96-116)
+TOL_FRAME = 1e-3             # mean |delta| of a frame, kernel vs plain route
+MARCH_FOUND = 0.999          # K6 vs plain: share of pixels whose `found` agrees
+TOL_MARCH = 1e-4             # K6 vs plain: relative lo/hi where both found
 
 
 def check(cond: bool, msg: str) -> None:
@@ -124,8 +156,8 @@ def card_line() -> str:
 
 
 def launch_counts():
-    from godotoceanwaves_tpu_torch.ops import fused_step, planes_fft, strip_step
-    return {"K1": fused_step, "K2": planes_fft, "K4": strip_step}
+    from godotoceanwaves_tpu_torch.ops import fused_step, march, planes_fft, strip_step, tap
+    return {"K1": fused_step, "K2": planes_fft, "K4": strip_step, "K5": tap, "K6": march}
 
 
 def reset_counts() -> None:
@@ -278,7 +310,7 @@ def phase_main_path(torch, T, fs, dev) -> int:
     counts = read_counts()
     launches = counts["K1"]
     log(f"[4] config 4: 60 update() + multi_step(8) -> launches {counts}")
-    check(counts == {"K1": 2 * 68, "K2": 0, "K4": 0},
+    check(counts == {"K1": 2 * 68, "K2": 0, "K4": 0, "K5": 0, "K6": 0},
           f"expected {2 * 68} K1 launches and no other, counted {counts}")
 
     d, nm, foam = maps.displacement, maps.normal, ocean.state.foam
@@ -301,7 +333,7 @@ def phase_main_path(torch, T, fs, dev) -> int:
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[4] staged path (fused='never'): 60 update() + multi_step(8) -> launches {counts}")
-    check(counts == {"K1": 0, "K2": 2 * 68, "K4": 0},
+    check(counts == {"K1": 0, "K2": 2 * 68, "K4": 0, "K5": 0, "K6": 0},
           f"expected {2 * 68} K2 launches and no other, counted {counts}")
     e_d = rel_rms(d, smaps.displacement)
     e_n = rms(nm, smaps.normal)
@@ -491,9 +523,9 @@ def phase_config5(torch, T, dev) -> dict:
         sessions[fused] = ocean
         log(f"[8] config 5 fused={fused!r}: {CONFIG5_UPDATES} update() -> launches "
             f"{counts[fused]}")
-    check(counts["auto"] == {"K1": 0, "K2": 0, "K4": 2 * CONFIG5_UPDATES},
+    check(counts["auto"] == {"K1": 0, "K2": 0, "K4": 2 * CONFIG5_UPDATES, "K5": 0, "K6": 0},
           f"config 5 expected {2 * CONFIG5_UPDATES} K4 launches only, counted {counts['auto']}")
-    check(counts["never"] == {"K1": 0, "K2": 2 * CONFIG5_UPDATES, "K4": 0},
+    check(counts["never"] == {"K1": 0, "K2": 2 * CONFIG5_UPDATES, "K4": 0, "K5": 0, "K6": 0},
           f"staged config 5 expected {2 * CONFIG5_UPDATES} K2 launches only, "
           f"counted {counts['never']}")
 
@@ -595,6 +627,253 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
     return out
 
 
+def render(geometry, maps, scales, cam=CAM0, **kw):
+    """One frame at bench.py's render settings (sampler "auto" is "mxu" on
+    the card, tap_impl "auto" the K5 kernel)."""
+    return geometry.render_ocean_geometry(maps, scales, camera_pos=cam, **{**RENDER_TIER, **kw})
+
+
+def lod_random_case(torch, T, shading, dev):
+    """3 cascades at 1024^2 (random bf16 normals), 4 levels, the 720p native
+    frame's 16 tap bands of 23 x 640 pixels; the band levels hold 0, 3 (whose
+    blend engages bicubic for every default tile) and the skip value 4."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    normal = torch.randn((3, 4, RENDER_MAP, RENDER_MAP), generator=gen, device=dev) * 0.5
+    pyr = shading.normal_gradient_pyramid(normal.to(torch.bfloat16), levels=4)
+    scales = T.default_cascades(device=dev).map_scales()
+    bands, pixels = 16, 23 * 640
+    z0 = torch.from_numpy(np.geomspace(2.0, 900.0, bands).astype(np.float32)).to(dev)
+    x = torch.rand((bands, pixels), generator=gen, device=dev) * 800.0 - 400.0
+    z = z0[:, None] + torch.rand((bands, pixels), generator=gen, device=dev) * 12.0
+    rows = [[0, 0, 0], [0, 1, 2], [1, 1, 3], [1, 2, 3], [2, 3, 4], [3, 3, 3], [4, 4, 4],
+            [0, 4, 3], [3, 0, 1], [2, 2, 2], [1, 3, 0], [4, 0, 2], [0, 2, 4], [3, 1, 0],
+            [2, 4, 1], [4, 4, 3]]
+    lev = torch.tensor(rows, dtype=torch.int32, device=dev)
+    return pyr, scales, torch.stack([x, z], dim=-1), lev
+
+
+def phase_tap_vs_plain(torch, T, dev, maps, scales) -> dict:
+    from godotoceanwaves_tpu_torch.models import geometry, shading
+    from godotoceanwaves_tpu_torch.ops import tap
+    args = lod_random_case(torch, T, shading, dev)
+    before = tap.LAUNCHES
+    got = tap.gradient_lod_tap(*args)
+    torch.cuda.synchronize()
+    check(tap.LAUNCHES == before + 1, "gradient_lod_tap did not launch the kernel")
+    want = tap.gradient_lod_tap_reference(*args)
+    e_rand = max_abs(got, want)
+    check(bool((got[6] == 0).all()), "a skipped band was tapped")
+    log(f"[10] K5 random case (16 bands x {args[2].shape[1]} px, 3 x {RENDER_MAP}^2, 4 levels):"
+        f" max abs {e_rand:.3e} (<= {TOL_TAP:g}); output mean |.| {float(want.abs().mean()):.3f}")
+    check(e_rand <= TOL_TAP, "K5 disagrees with its plain version (random case)")
+    kw = dict(width=640, height=360, _debug_stage="grad")
+    before = tap.LAUNCHES
+    got = render(geometry, maps, scales, **kw)
+    torch.cuda.synchronize()
+    check(tap.LAUNCHES == before + 1, "the render's gradient stage did not launch K5 once")
+    want = render(geometry, maps, scales, tap_impl="einsum", **kw)
+    e_real = max_abs(got, want)
+    log(f"[10] K5 real 640x360 frame gradient (_debug_stage='grad'), kernel route vs "
+        f"tap_impl='einsum': max abs {e_real:.3e} (<= {TOL_TAP:g})")
+    check(e_real <= TOL_TAP, "K5 disagrees with its plain version (real frame)")
+    return {"random": e_rand, "real": e_real, "args": args}
+
+
+def march_case(torch, geometry, maps, scales, dev, width=640, height=360):
+    """K6's inputs in a real frame: the G = 256 march table of the displaced
+    grid under the bench camera, its rays and march windows."""
+    coords = geometry._on_device(dev, geometry.clipmap_axis_coords, "high")
+    cam = torch.tensor(CAM0, device=dev)
+    center = torch.ceil(cam[0::2])
+    grid = geometry.displaced_grid(maps, scales, coords, center, cam, sampler="mxu")
+    table = geometry.uniform_from_graded(grid, "high", 256)[..., 1]
+    _, _, origin, cell = geometry._uniform_resample_tables("high", 256)
+    d = geometry.camera_rays(width, height, -12.0, 0.0, 70.0, device=dev)
+    t0, t1, ok = geometry.march_window(cam, d, grid, coords, center, 1600.0)
+    return table, d, t0, t1, ok, cam, center, origin, cell
+
+
+def phase_march_vs_plain(torch, dev, maps, scales) -> dict:
+    from godotoceanwaves_tpu_torch.models import geometry
+    from godotoceanwaves_tpu_torch.ops import march
+    args = march_case(torch, geometry, maps, scales, dev)
+    before = march.LAUNCHES
+    found, lo, hi = march.march_heightfield(*args, march_steps=32, refine_rounds=2)
+    torch.cuda.synchronize()
+    check(march.LAUNCHES == before + 1, "march_heightfield did not launch the kernel")
+    wf, wlo, whi = march.march_heightfield_reference(*args, march_steps=32, refine_rounds=2)
+    agree = float((found == wf).float().mean())
+    both = found & wf
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max())
+    e_lo, e_hi = rel(lo, wlo), rel(hi, whi)
+    err = max(float((lo - wlo).abs()[both].max()), float((hi - whi).abs()[both].max()))
+    log(f"[11] K6 640x360 rays, G=256, 32 steps + 2 rounds: found agrees on {agree:.6f} "
+        f"(>= {MARCH_FOUND}); hit share {float(wf.float().mean()):.3f}; rel lo {e_lo:.3e}, "
+        f"hi {e_hi:.3e} (<= {TOL_MARCH:g}); max abs {err:.3e}")
+    check(agree >= MARCH_FOUND and e_lo <= TOL_MARCH and e_hi <= TOL_MARCH,
+          "K6 disagrees with its plain version")
+    return {"agree": agree, "max_abs": err, "args": args}
+
+
+def phase_render_path(torch, dev, ocean) -> dict:
+    from godotoceanwaves_tpu_torch.models import geometry
+    scales = ocean.params.map_scales()
+    reset_counts()
+    maps = ocean.update(1 / 60)
+    imgs = {leg: render(geometry, maps, scales, **kw) for leg, kw in RENDER_LEGS.items()}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[12] Ocean.update() + the three render legs -> launches {counts}")
+    check(counts == {"K1": 2, "K2": 0, "K4": 0, "K5": 3, "K6": 0},
+          f"expected 2 K1, one K5 per frame and no other, counted {counts}")
+    small = next(iter(RENDER_LEGS))
+    reset_counts()
+    pal = render(geometry, maps, scales, march_impl="pallas", **RENDER_LEGS[small])
+    torch.cuda.synchronize()
+    pal_counts = read_counts()
+    log(f"[12] one march_impl='pallas' {small} frame -> launches {pal_counts}")
+    check(pal_counts == {"K1": 0, "K2": 0, "K4": 0, "K5": 1, "K6": 1},
+          f"expected one K5 and one K6 launch, counted {pal_counts}")
+
+    out = {"launches_K5": counts["K5"], "launches_K6": pal_counts["K6"], "frame_err": {}}
+    for leg, kw in RENDER_LEGS.items():
+        img = imgs[leg]
+        check(tuple(img.shape) == (kw["height"], kw["width"], 3), f"{leg}: shape {img.shape}")
+        check(bool(img.isfinite().all()) and float(img.min()) >= 0.0
+              and float(img.max()) <= 1.0, f"{leg}: image not finite in [0, 1]")
+        plain = render(geometry, maps, scales, tap_impl="einsum", **kw)
+        e = float((img - plain).abs().mean())
+        out["frame_err"][leg] = e
+        log(f"[12] {leg}: kernel route vs plain route mean |delta| {e:.3e} (<= {TOL_FRAME:g}), "
+            f"max {max_abs(img, plain):.3e}; image mean {float(img.mean()):.4f}")
+        check(e <= TOL_FRAME, f"{leg}: kernel-route frame disagrees with the plain route")
+    for leg, kw in RENDER_LEGS.items():
+        if kw.get("render_scale", 1) > 1:
+            continue
+        hit = render(geometry, maps, scales, _debug_stage="march", **kw)[..., 1]
+        sky = 1.0 - float(hit.mean())
+        log(f"[12] {leg}: sky share {sky:.4f} (0.05 .. 0.6)")
+        check(0.05 <= sky <= 0.6, f"{leg}: implausible sky share {sky}")
+    e_pal = float((pal - imgs[small]).abs().mean())
+    log(f"[12] march_impl='pallas' vs the fan march at {small}: mean |delta| {e_pal:.3e}")
+    check(bool(pal.isfinite().all()) and e_pal <= 2e-2, "the K6 frame is far from the fan frame")
+    cam = torch.tensor(CAM0, device=dev)
+    for leg, kw in RENDER_LEGS.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img = render(geometry, maps, scales, cam=cam, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(max_abs(img, imgs[leg]) <= 1e-6, f"{leg}: the sync-checked frame differs")
+    log("[12] one frame per leg under torch.cuda.set_sync_debug_mode('error'): no host sync")
+    out["maps"], out["scales"] = maps, scales
+    return out
+
+
+def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3) -> dict:
+    """Device time per frame by kernel under torch.profiler (kernel rows
+    only): the device's busy share against the unprofiled host-clock frame
+    time, the launch count, and the top kernels (the full table goes to
+    build/, which .gitignore lists)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            frame()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue            # the ops' rows repeat their kernels' device time
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / reps / 1e3, e.count / reps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", f"render_profile_{leg.split()[0]}.txt"), "w") as f:
+        for ms, count, key in rows:
+            f.write(f"{ms:10.4f} ms {count:8.1f} x  {key}\n")
+    log(f"[13] {leg} under torch.profiler: device busy {busy:.3f} ms/frame in {launches:.0f} "
+        f"kernel launches, {busy / host_ms:.1%} of the {host_ms:.3f} ms host-clock frame")
+    for ms, count, key in rows[:8]:
+        log(f"[13]     {ms:8.4f} ms/frame {count:6.1f} x  {key[:90]}")
+    return {"busy_ms": busy, "launches": launches, "top": rows[:8]}
+
+
+def phase_render_timing(torch, dev, maps, scales, tap_args, march_args, card: str) -> dict:
+    from godotoceanwaves_tpu_torch.models import geometry
+    from godotoceanwaves_tpu_torch.ops import march, tap
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    cam0 = torch.tensor(CAM0, device=dev)
+    out = {}
+
+    def chained(**kw):
+        """Frames chained through a bounded camera nudge: each frame waits
+        for the last, and the pose moves by at most 1e-6 m."""
+        carry = [torch.zeros((), device=dev)]
+
+        def frame():
+            img = render(geometry, maps, scales, cam=cam0 + torch.tanh(carry[0]) * 1e-6, **kw)
+            carry[0] = img.sum()
+        return frame
+
+    for leg, kw in list(RENDER_LEGS.items()) * 2:       # twice: the spread between passes
+        ms = time_cuda(chained(**kw), iters=10, warmup=2)
+        frame = chained(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            frame()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        render(geometry, maps, scales, **kw)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        prev = out.get(leg, {"ms": float("inf"), "host_ms": float("inf")})
+        out[leg] = {"ms": min(ms, prev["ms"]), "host_ms": min(host_ms, prev["host_ms"]),
+                    "peak_GiB": peak}
+        log(f"[13] {leg}: {ms:.3f} ms/frame (CUDA events, best of 3 x 10, chained), host clock "
+            f"{host_ms:.3f} ms/frame over 10 chained frames, peak {peak:.3f} GiB above the "
+            f"resident {base / 2 ** 30:.3f} GiB; card {card}")
+    for leg in ("640x360", "1280x720 native"):
+        if leg in RENDER_LEGS:
+            out[f"profile {leg}"] = profile_frames(torch, chained(**RENDER_LEGS[leg]), leg,
+                                                   out[leg]["host_ms"])
+    for w, h in ((640, 360), (1280, 720)):
+        split = {st: time_cuda(chained(width=w, height=h, _debug_stage=st), iters=10, warmup=2)
+                 for st in ("march", "uv", "grad", None)}
+        out[f"split {w}x{h}"] = split
+        log(f"[13] {w}x{h} cumulative stages, ms: march {split['march']:.3f}, uv "
+            f"{split['uv']:.3f}, grad {split['grad']:.3f}, full {split[None]:.3f}; card {card}")
+    marches = {impl: time_cuda(chained(width=640, height=360, march_impl=impl,
+                                       _debug_stage="march"), iters=10, warmup=2)
+               for impl in ("fan", "pallas", "xla")}
+    out["march_stage"] = marches
+    log(f"[13] 640x360 march stage (rays + tables + march), ms: fan {marches['fan']:.3f}, "
+        f"K6 (pallas) {marches['pallas']:.3f}, xla bracket {marches['xla']:.3f}; card {card}")
+
+    k5, k5_plain, t = turns(time_cuda, lambda: tap.gradient_lod_tap_reference(*tap_args),
+                            lambda: tap.gradient_lod_tap(*tap_args), iters=3)
+    out["K5"] = (k5, k5_plain)
+    log(f"[13] K5 (16 bands x 14720 px, 3 x 1024^2, 4 levels): kernel {k5:.4f} ms, plain "
+        f"{k5_plain:.4f} ms; turns {[round(v, 4) for v in t]}; card {card}")
+    run = dict(march_steps=32, refine_rounds=2)
+    k6, k6_plain, t = turns(time_cuda, lambda: march.march_heightfield_reference(*march_args, **run),
+                            lambda: march.march_heightfield(*march_args, **run), iters=10)
+    out["K6"] = (k6, k6_plain)
+    log(f"[13] K6 (640x360 rays, G=256, 32 steps + 2 rounds): kernel {k6:.4f} ms, plain "
+        f"{k6_plain:.4f} ms; turns {[round(v, 4) for v in t]}; card {card}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -617,6 +896,13 @@ def main() -> int:
     planes_errs = phase_planes_vs_plain(torch, pf, fft, dev)
     c5 = phase_config5(torch, T, dev)
     timing = phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card)
+    ocean = T.Ocean(map_size=RENDER_MAP, map_dtype="bfloat16", updates_per_second=0, device=dev)
+    maps0 = ocean.update(1 / 60)
+    tap_res = phase_tap_vs_plain(torch, T, dev, maps0, ocean.params.map_scales())
+    march_res = phase_march_vs_plain(torch, dev, maps0, ocean.params.map_scales())
+    path = phase_render_path(torch, dev, ocean)
+    rtime = phase_render_timing(torch, dev, path["maps"], path["scales"], tap_res["args"],
+                                march_res["args"], card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -635,6 +921,14 @@ def main() -> int:
              max_abs_err=strip_errs[(STRIP_SIZE, torch.bfloat16, 1)],
              max_abs_err_fp32=strip_errs[(STRIP_SIZE, torch.float32, 1)],
              ms=k4_ms, plain_ms=k4_plain_ms, shape=f"2 x {STRIP_SIZE}^2 bf16 maps"),
+        dict(KERNELS["K5"], route="cuda", launches=path["launches_K5"],
+             max_abs_err=max(tap_res["random"], tap_res["real"]),
+             max_abs_err_real_frame=tap_res["real"], ms=rtime["K5"][0], plain_ms=rtime["K5"][1],
+             shape=f"16 bands x 14720 px, 3 x {RENDER_MAP}^2 bf16 pyramid, 4 levels"),
+        dict(KERNELS["K6"], route="cuda", launches=path["launches_K6"],
+             max_abs_err=march_res["max_abs"], found_agree=march_res["agree"],
+             ms=rtime["K6"][0], plain_ms=rtime["K6"][1],
+             shape="640x360 rays, G = 256 table, 32 steps + 2 refine rounds"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,10 @@
-"""Models: cascade parameters and the ocean simulation session."""
+"""Models: cascade parameters, the ocean simulation session, the fly camera,
+shading and the displaced-geometry renderer."""
+from .camera import FlyCamera
 from .cascade import (CascadeParams, SimConfig, default_cascades,
                       dual_wind_swell_cascades, stack_cascades)
+from .geometry import (CLIPMAP_PRESETS, clipmap_axis_coords, displaced_grid,
+                       render_ocean_geometry, surface_height)
 from .ocean import (
     Ocean,
     OceanMaps,
@@ -16,7 +20,8 @@ from .ocean import (
 )
 
 __all__ = [
-    "CascadeParams", "SimConfig", "default_cascades",
+    "FlyCamera", "CLIPMAP_PRESETS", "clipmap_axis_coords", "displaced_grid",
+    "render_ocean_geometry", "surface_height", "CascadeParams", "SimConfig", "default_cascades",
     "dual_wind_swell_cascades", "stack_cascades",
     "Ocean", "OceanMaps", "OceanState", "generate_spectrum", "init_state",
     "multi_step", "refresh_cascades", "simulate", "step", "step_cascade", "step_frames",

@@ -100,6 +100,16 @@ class CascadeParams:
     def num_cascades(self) -> int:
         return 1 if self.wind_speed.ndim == 0 else self.wind_speed.shape[0]
 
+    def map_scales(self) -> torch.Tensor:
+        """(..., 4) per-cascade (1/Lx, 1/Ly, displacement_scale, normal_scale).
+
+        The material-facing uniform the orchestrator derives per cascade
+        (water.gd:102-110); the renderer's `map_scales` argument.
+        """
+        uv = 1.0 / self.tile_length
+        return torch.stack(
+            [uv[..., 0], uv[..., 1], self.displacement_scale, self.normal_scale], dim=-1)
+
 
 def stack_cascades(cascades: Sequence[CascadeParams]) -> CascadeParams:
     """Stack single-cascade params into one with a leading cascade axis."""

@@ -24,8 +24,12 @@ HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per-source flags. The render kernels round interpolation weights to bf16,
+# so a contracted multiply-add that moves a weight by an ulp can flip its
+# rounding: they build without contraction.
+SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # fused_step_rows(h0, h0nc, omega, scal, scratch, c, n, frame, stream)
     "fused_step_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -41,6 +45,11 @@ _SIGNATURES = {
     "planes_fft_rows": (_P, _P, _I, _I, _P),
     # planes_fft_cols(scratch, out, l, n, fold_sign, stream)
     "planes_fft_cols": (_P, _P, _I, _I, _I, _P),
+    # lod_tap(pyr, scales, xz, levels, out, bands, pixels, cascades, res, nlev, stream)
+    "lod_tap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # march_heightfield(table, bx, bz, dy, t0, t1, valid, scal, found, lo, hi,
+    #                   pixels, g, steps, inv_steps, rounds, stream)
+    "march_heightfield": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
 }
 
 
@@ -58,7 +67,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1((" ".join(NVCC_FLAGS) + repr(sorted(SOURCE_FLAGS.items()))).encode())
     for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgodotocean_kernels_{h.hexdigest()[:12]}.so"
@@ -73,7 +82,8 @@ def compile_library() -> tuple[Path, str]:
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in SOURCES]
-        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        compiles = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", obj,
+                     str(src)]
                     for src, obj in zip(SOURCES, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in compiles]

@@ -1,4 +1,4 @@
-"""Carry parameters and state across from the JAX package as NumPy arrays.
+"""Carry parameters, state and maps across from the JAX package as NumPy arrays.
 
 Both packages then compute from identical inputs:
 
@@ -14,7 +14,10 @@ import numpy as np
 import torch
 
 from ..models.cascade import CascadeParams
-from ..models.ocean import OceanState
+from ..models.ocean import OceanMaps, OceanState
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
 
 
 def _tensors(cls, leaves: Mapping[str, np.ndarray], device) -> dict:
@@ -41,3 +44,23 @@ def state_to_numpy(state: OceanState) -> dict[str, np.ndarray]:
     """{field: ndarray} of an `OceanState`, copied to the host."""
     return {f.name: getattr(state, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(state)}
+
+
+def maps_from_numpy(displacement: np.ndarray, normal: np.ndarray,
+                    dtype: str | torch.dtype | None = None,
+                    device: torch.device | str = "cpu") -> OceanMaps:
+    """`OceanMaps` from the JAX package's maps as NumPy arrays.
+
+    displacement (C, 3, N, N) and normal (C, 4, N, N), channel-first. Arrays
+    of a dtype NumPy lacks (JAX's bfloat16) should arrive as float32: the
+    widening is exact, and `dtype` ("bfloat16", "float16", "float32" or a
+    torch dtype; None keeps the arrays' own) rounds them back here, which
+    restores the original values exactly.
+    """
+    if isinstance(dtype, str):
+        dtype = _TORCH_DTYPES[dtype]
+
+    def conv(a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32 if dtype is not None else None))
+        return (t if dtype is None else t.to(dtype)).to(device)
+    return OceanMaps(displacement=conv(displacement), normal=conv(normal))

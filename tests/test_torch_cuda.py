@@ -8,7 +8,9 @@ package cannot be imported. From the checkout root on a machine with the card:
 
 Tolerances are those of the kernel-vs-plain check in chip_smoke.py: fp32
 maps <= 1e-4 relative RMS, 2-byte maps <= 1e-3 (displacement, relative) and
-<= 2e-3 (normal, RMS), foam <= 1e-4 RMS.
+<= 2e-3 (normal, RMS), foam <= 1e-4 RMS; the gradient taps (K5) <= 5e-5 max
+abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
+1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean.
 """
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ import torch
 
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
-from godotoceanwaves_tpu_torch.ops import fft, fused_step, planes_fft, strip_step
+from godotoceanwaves_tpu_torch.models import geometry, shading
+from godotoceanwaves_tpu_torch.ops import fft, fused_step, march, planes_fft, strip_step, tap
 
 pytestmark = pytest.mark.cuda
 
@@ -171,3 +174,117 @@ def test_config5_session_runs_strip_and_staged_kernels(card):
     strip, staged = sessions
     assert_close((strip.maps.displacement, strip.maps.normal, strip.state.foam),
                  (staged.maps.displacement, staged.maps.normal, staged.state.foam), two_byte=True)
+
+
+# --- the render's kernels: K5 (ops/tap.py) and K6 (ops/march.py) -----------
+
+SCALES = [[1 / 88.0, 1 / 88.0, 1.0, 1.0], [1 / 57.0, 1 / 57.0, 0.75, 1.0],
+          [1 / 16.0, 1 / 16.0, 0.0, 0.25]]
+
+
+def lod_case(dev, r=256, levels=4, pixels=3000, seed=0):
+    """Three cascades, eight bands from near to far; levels hold 0, the
+    coarsest (whose blend engages bicubic) and the skip value."""
+    rng = np.random.default_rng(seed)
+    normal = torch.from_numpy(rng.normal(size=(3, 4, r, r)).astype(np.float32))
+    pyr = shading.normal_gradient_pyramid(normal.to(dev).to(torch.bfloat16), levels=levels)
+    z0 = np.array([2.0, 10.0, 30.0, 60.0, 120.0, 250.0, 500.0, 900.0])[:, None]
+    xz = np.stack([rng.uniform(-300, 300, (8, pixels)), z0 + rng.uniform(0, 9, (8, pixels))], -1)
+    lev = np.array([[0, 0, 0], [0, 1, 3], [1, 2, 4], [2, 3, 3], [3, 3, 2], [4, 4, 4],
+                    [3, 0, 1], [2, 2, 2]], np.int32)
+    return (pyr, torch.tensor(SCALES, device=dev),
+            torch.from_numpy(xz.astype(np.float32)).to(dev), torch.from_numpy(lev).to(dev))
+
+
+@pytest.mark.parametrize("r", [256, 1024])
+def test_tap_kernel_matches_plain(card, r):
+    args = lod_case(card, r=r)
+    before = tap.LAUNCHES
+    got = tap.gradient_lod_tap(*args)
+    torch.cuda.synchronize()
+    assert tap.LAUNCHES == before + 1
+    want = tap.gradient_lod_tap_reference(*args)
+    assert got.shape == want.shape == (8, 3000, 3)
+    assert float((got - want).abs().max()) <= 5e-5
+    assert torch.equal(got[5], torch.zeros_like(got[5]))        # all skipped
+
+
+def test_tap_kernel_raises_on_what_it_does_not_take(card):
+    pyr, scales, xz, lev = lod_case(card)
+    with pytest.raises(TypeError, match="int32"):
+        tap.gradient_lod_tap(pyr, scales, xz, lev.long())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tap.gradient_lod_tap([p.half() for p in pyr], scales, xz, lev)
+    with pytest.raises(ValueError, match="level 1"):
+        tap.gradient_lod_tap([pyr[0], pyr[2]], scales, xz, lev)
+    with pytest.raises(ValueError, match="is on"):
+        tap.gradient_lod_tap(pyr, scales.cpu(), xz, lev)
+
+
+def march_case(dev, g=256, seed=0):
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(0.0, 1.2, (g // 8, g // 8))
+    table = torch.from_numpy((np.kron(coarse, np.ones((8, 8)))
+                              + rng.normal(0.0, 0.3, (g, g))).astype(np.float32)).to(dev)
+    cam = torch.tensor([1.3, 3.0, -2.7], device=dev)
+    center = torch.ceil(cam[0::2])
+    d = geometry.camera_rays(320, 180, -12.0, 25.0, 70.0, device=dev)
+    t0 = torch.zeros(180, 320, device=dev)
+    t1 = torch.full((180, 320), 250.0, device=dev)
+    valid = d[..., 1] < 0.05
+    return table, d, t0, t1, valid, cam, center, -256.0, 512.0 / (g - 1)
+
+
+def test_march_kernel_matches_plain(card):
+    args = march_case(card)
+    before = march.LAUNCHES
+    found, lo, hi = march.march_heightfield(*args, march_steps=32, refine_rounds=2)
+    torch.cuda.synchronize()
+    assert march.LAUNCHES == before + 1
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    wf, wlo, whi = march.march_heightfield(*cpu, march_steps=32, refine_rounds=2)
+    found, lo, hi = found.cpu(), lo.cpu(), hi.cpu()
+    assert float((found == wf).float().mean()) >= 0.999
+    both = found & wf
+    assert 0.1 < float(both.float().mean()) < 0.999
+    for a, b in ((lo, wlo), (hi, whi)):
+        assert float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max()) <= 1e-4
+
+
+def test_march_kernel_raises_on_what_it_does_not_take(card):
+    table, *rest = march_case(card)
+    with pytest.raises(ValueError, match=r"\(G, G\)"):
+        march.march_heightfield(table[None], *rest)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        march.march_heightfield(table.half(), *rest)
+    with pytest.raises(TypeError, match="bool"):
+        march.march_heightfield(table, *rest[:3], rest[3].float(), *rest[4:])
+
+
+def test_render_launches_the_kernels_and_makes_no_host_sync(card):
+    """The default render on the card goes through K5 once per frame and no
+    K6; march_impl="pallas" launches K6. A warm frame makes no host sync;
+    the kernel-route frame matches the plain-route frame."""
+    ocean = T.Ocean(map_size=128, map_dtype="bfloat16", updates_per_second=0, device=card)
+    maps = ocean.update(1 / 60)
+    scales = ocean.params.map_scales()
+    kw = dict(width=160, height=96, march_steps=32, bisect_steps=6, shade_res=2,
+              bracket_res=128, invert_res=256, environment=True)
+    geometry.render_ocean_geometry(maps, scales, **kw)            # warm the caches
+    before = (tap.LAUNCHES, march.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = geometry.render_ocean_geometry(maps, scales, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (tap.LAUNCHES - before[0], march.LAUNCHES - before[1]) == (1, 0)
+    assert img.shape == (96, 160, 3) and bool(img.isfinite().all())
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
+    plain = geometry.render_ocean_geometry(maps, scales, tap_impl="einsum", **kw)
+    assert float((img - plain).abs().mean()) < 1e-3
+    before = march.LAUNCHES
+    pal = geometry.render_ocean_geometry(maps, scales, march_impl="pallas", **kw)
+    torch.cuda.synchronize()
+    assert march.LAUNCHES == before + 1
+    assert bool(pal.isfinite().all())

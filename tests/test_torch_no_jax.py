@@ -1,4 +1,4 @@
-"""The PyTorch port runs with JAX, flax and the JAX package unimportable."""
+"""The PyTorch port steps and renders with JAX, flax and the JAX package unimportable."""
 import subprocess
 import sys
 import textwrap
@@ -16,6 +16,10 @@ def test_port_imports_and_steps_without_jax():
         ocean.state, maps = multi_step(ocean.config, ocean.state, ocean.params, 0.02, 2)
         assert maps.displacement.shape == (3, 3, 16, 16)
         assert bool(maps.displacement.isfinite().all())
+        from godotoceanwaves_tpu_torch.models import render_ocean_geometry
+        img = render_ocean_geometry(maps, ocean.params.map_scales(), "low", width=32, height=16,
+                                    sampler="mxu", march_steps=4, bisect_steps=3, shade_res=2)
+        assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
