@@ -45,16 +45,40 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 13. Render timing with CUDA events: ms/frame of the three legs, the
     `_debug_stage` split at 640x360 and 720p native, K5 and K6 vs their
     plain versions and K6 vs the fan march, peak device memory.
+14. The rows DFT kernel (K3) against its plain version: the config-5 shard
+    (16, 2, 1024, 2048), the 1024^2 shard at rows = 8 (16, 2, 128, 1024),
+    and N = 16, 256, 8192 with R = 37 tail rows, both fold_sign values.
+15. The sharded path (`parallel/`), every mesh position on the card:
+    config 4's shape (4 x 1024^2) on a (1, 8) mesh for 8 frames against the
+    unsharded step (K1), fp32 maps; BASELINE config 5 at full width (8
+    patches x 2 cascades at 2048^2, bf16 maps) on a (4, 2) mesh for 48
+    updates: launch counts, finite maps, foam in [0, 1], per-patch height
+    std, one fp32 frame of patch 0 against the single-patch step (K4),
+    `gather_maps`, one frame under `set_sync_debug_mode("error")`; a
+    checkpoint saved on (4, 2), restored on (2, 4) and continued one frame
+    against the unbroken run; `render_geometry_sharded` of patch 0 at
+    640x360 over 8 bands against the dense render (gather sampler, no LOD,
+    per-pixel march), and at the interactive tier (finite, sky share).
+16. Timing with CUDA events: K3 vs its plain version and `torch.fft.ifft`
+    at the config-5 shard shape; the sharded config-5 step in ms/frame with
+    its K3 / exchange / modulate / unpack split, beside 8 single-patch K4
+    steps; peak device memory of a sharded step.
 
-Prints a JSON line of the kernels, the card's name and power limit, then as
-its last line {"ok": true, "device": {...}}. Exits non-zero, with no result
-line, when no CUDA device is present or any phase fails. Imports nothing of
-JAX.
+Every kernel's entry in the kernels line has its bound: the larger of the
+bytes its function must move (each input read once, each output written
+once) over the card's memory rate and the operations it does over the fp32
+rate (HBM_TBPS, FP32_TFLOPS), from this run's inputs. Prints a JSON line of
+the sharded step, the card's name and power limit, a JSON line of the
+kernels, then as its last line {"ok": true, "device": {...}}. Exits
+non-zero, with no result line, when no CUDA device is present or any phase
+fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -68,6 +92,8 @@ KERNELS = {
                replaces="godotoceanwaves_tpu/ops/pallas_step.py:328"),
     "K2": dict(name="planes_fft (rows + cols)", source=CSRC + "planes_fft.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_fft.py:345"),
+    "K3": dict(name="rows_fft", source=CSRC + "rows_fft.cu",
+               replaces="godotoceanwaves_tpu/ops/pallas_fft.py:529"),
     "K4": dict(name="strip_step (rows + cols)", source=CSRC + "strip_step.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_strip.py:188"),
     "K5": dict(name="lod_tap", source=CSRC + "tap.cu",
@@ -108,6 +134,18 @@ TOL_TAP = 5e-5               # max abs, K5 vs plain (tests/test_pallas_tap.py:96
 TOL_FRAME = 1e-3             # mean |delta| of a frame, kernel vs plain route
 MARCH_FOUND = 0.999          # K6 vs plain: share of pixels whose `found` agrees
 TOL_MARCH = 1e-4             # K6 vs plain: relative lo/hi where both found
+# phase 14: (L, R, N) of K3; the config-5 shard at rows = 2 comes first
+ROWS_SHAPES = ((16, 1024, 2048), (16, 128, 1024), (4, 37, 16), (4, 37, 256), (4, 37, 8192))
+SHARD_ROWS_MAIN = 8          # phase 15: config 4's shape on a (1, 8) mesh
+SHARD_FRAMES = 8
+SHARD_PATCHES = 8            # BASELINE config 5: 8 patches (BASELINE.json configs[4])
+SHARD_ROWS_C5 = 2            # its (4, 2) mesh; the checkpoint restores on (2, 4)
+TOL_RESTORE_FOAM = 1e-5      # max abs (tests/test_multihost.py:59-63)
+TOL_RESTORE_DISP = 1e-4
+TOL_BANDS = 1e-4             # max abs, banded vs dense frame (tests/test_sharding.py:204)
+# The card's peaks (the on-chip-measurement guide's table: H100 SXM, 700 W)
+HBM_TBPS = 3.35
+FP32_TFLOPS = 67.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -156,8 +194,39 @@ def card_line() -> str:
 
 
 def launch_counts():
-    from godotoceanwaves_tpu_torch.ops import fused_step, march, planes_fft, strip_step, tap
-    return {"K1": fused_step, "K2": planes_fft, "K4": strip_step, "K5": tap, "K6": march}
+    from godotoceanwaves_tpu_torch.ops import (fused_step, march, planes_fft, rows_fft,
+                                               strip_step, tap)
+    return {"K1": fused_step, "K2": planes_fft, "K3": rows_fft, "K4": strip_step, "K5": tap,
+            "K6": march}
+
+
+def only(**launched) -> dict:
+    """The launch counts of a run that launched `launched` and nothing else."""
+    return {k: launched.get(k, 0) for k in launch_counts()}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fft_flops(n: int, transforms: int) -> float:
+    """5 n log2 n flops per length-n complex transform."""
+    return 5.0 * n * math.log2(n) * transforms
+
+
+def bound(moved: float, flops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations"): the larger of bytes over the
+    memory rate and flops over the fp32 rate."""
+    t_bytes = moved / (HBM_TBPS * 1e9)
+    t_ops = flops / (FP32_TFLOPS * 1e9)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def step_bound(args, outs, cascades: int, n: int) -> tuple[float, str]:
+    """A whole step's bound (K1, K4): state in, maps and foam out; the
+    operations of the 2D IFFT of 4 layers a cascade (modulate and unpack
+    not counted)."""
+    return bound(nbytes(*args, *outs), fft_flops(n, cascades * 4 * 2 * n))
 
 
 def reset_counts() -> None:
@@ -310,7 +379,7 @@ def phase_main_path(torch, T, fs, dev) -> int:
     counts = read_counts()
     launches = counts["K1"]
     log(f"[4] config 4: 60 update() + multi_step(8) -> launches {counts}")
-    check(counts == {"K1": 2 * 68, "K2": 0, "K4": 0, "K5": 0, "K6": 0},
+    check(counts == only(K1=2 * 68),
           f"expected {2 * 68} K1 launches and no other, counted {counts}")
 
     d, nm, foam = maps.displacement, maps.normal, ocean.state.foam
@@ -333,7 +402,7 @@ def phase_main_path(torch, T, fs, dev) -> int:
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[4] staged path (fused='never'): 60 update() + multi_step(8) -> launches {counts}")
-    check(counts == {"K1": 0, "K2": 2 * 68, "K4": 0, "K5": 0, "K6": 0},
+    check(counts == only(K2=2 * 68),
           f"expected {2 * 68} K2 launches and no other, counted {counts}")
     e_d = rel_rms(d, smaps.displacement)
     e_n = rms(nm, smaps.normal)
@@ -368,6 +437,7 @@ def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
     ms, plain_ms, t = turns(
         time_cuda, lambda: fs.fused_cascade_step_reference(*args, map_dtype=torch.bfloat16),
         lambda: fs.fused_cascade_step(*args, map_dtype=torch.bfloat16))
+    bnd = step_bound(args, fs.fused_cascade_step(*args, map_dtype=torch.bfloat16), 4, MAIN_SIZE)
     state = [st]
 
     def one_step():
@@ -384,8 +454,9 @@ def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
     update_ms = (time.perf_counter() - t0) / 100 * 1e3
     log(f"[5] 4 x {MAIN_SIZE}^2 bf16, ms/frame (CUDA events, best of 3 x 20): kernel {ms:.4f}, "
         f"plain {plain_ms:.4f}, step() {step_ms:.4f}; turns {[round(x, 4) for x in t]}; "
-        f"Ocean.update() host clock over 100 calls {update_ms:.4f}; card {card}")
-    return ms, plain_ms
+        f"Ocean.update() host clock over 100 calls {update_ms:.4f}; bound {bnd[0]:.4f} "
+        f"({bnd[1]}); card {card}")
+    return ms, plain_ms, bnd
 
 
 def config5_params(T, dev, cascades: int = 2):
@@ -523,9 +594,9 @@ def phase_config5(torch, T, dev) -> dict:
         sessions[fused] = ocean
         log(f"[8] config 5 fused={fused!r}: {CONFIG5_UPDATES} update() -> launches "
             f"{counts[fused]}")
-    check(counts["auto"] == {"K1": 0, "K2": 0, "K4": 2 * CONFIG5_UPDATES, "K5": 0, "K6": 0},
+    check(counts["auto"] == only(K4=2 * CONFIG5_UPDATES),
           f"config 5 expected {2 * CONFIG5_UPDATES} K4 launches only, counted {counts['auto']}")
-    check(counts["never"] == {"K1": 0, "K2": 2 * CONFIG5_UPDATES, "K4": 0, "K5": 0, "K6": 0},
+    check(counts["never"] == only(K2=2 * CONFIG5_UPDATES),
           f"staged config 5 expected {2 * CONFIG5_UPDATES} K2 launches only, "
           f"counted {counts['never']}")
 
@@ -578,6 +649,8 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
         time_cuda, lambda: ss.strip_cascade_step_reference(*args, map_dtype=torch.bfloat16),
         lambda: ss.strip_cascade_step(*args, map_dtype=torch.bfloat16))
     out["K4"] = (ms, plain_ms)
+    out["K4_bound"] = step_bound(args, ss.strip_cascade_step(*args, map_dtype=torch.bfloat16), 2,
+                                 STRIP_SIZE)
     state = [st]
 
     def one_step():
@@ -618,12 +691,16 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
         x = torch.randn((l, 2, n, n), generator=gen, device=dev)
         ms, plain_ms, t = turns(time_cuda, lambda: fft.ifft2_packed_planes(x, fold_sign=True),
                                 lambda: pf.ifft2_packed_planes(x, fold_sign=True))
-        out[("K2", l, n)] = (ms, plain_ms)
+        z = torch.complex(x[:, 0], x[:, 1])
+        lib_ms = time_cuda(lambda: torch.fft.ifft2(z, norm="forward"))
+        bnd = bound(2 * nbytes(x), fft_flops(n, 2 * l * n))
+        out[("K2", l, n)] = (ms, plain_ms, lib_ms, bnd)
         moved = 32 * l * n * n
         log(f"[9] K2 {l} x {n}^2 planes, ms (CUDA events, best of 3 x 20): kernel {ms:.4f} "
-            f"({moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.1f} MB), torch.fft {plain_ms:.4f}; "
+            f"({moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.1f} MB), plain {plain_ms:.4f}, "
+            f"torch.fft.ifft2 alone {lib_ms:.4f}, bound {bnd[0]:.4f} ({bnd[1]}); "
             f"turns {[round(v, 4) for v in t]}; card {card}")
-        del x
+        del x, z
     return out
 
 
@@ -724,7 +801,7 @@ def phase_render_path(torch, dev, ocean) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[12] Ocean.update() + the three render legs -> launches {counts}")
-    check(counts == {"K1": 2, "K2": 0, "K4": 0, "K5": 3, "K6": 0},
+    check(counts == only(K1=2, K5=3),
           f"expected 2 K1, one K5 per frame and no other, counted {counts}")
     small = next(iter(RENDER_LEGS))
     reset_counts()
@@ -732,7 +809,7 @@ def phase_render_path(torch, dev, ocean) -> dict:
     torch.cuda.synchronize()
     pal_counts = read_counts()
     log(f"[12] one march_impl='pallas' {small} frame -> launches {pal_counts}")
-    check(pal_counts == {"K1": 0, "K2": 0, "K4": 0, "K5": 1, "K6": 1},
+    check(pal_counts == only(K5=1, K6=1),
           f"expected one K5 and one K6 launch, counted {pal_counts}")
 
     out = {"launches_K5": counts["K5"], "launches_K6": pal_counts["K6"], "frame_err": {}}
@@ -806,6 +883,37 @@ def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3) -> dic
     return {"busy_ms": busy, "launches": launches, "top": rows[:8]}
 
 
+def tap_flops(pyramid, scales, xz, levels) -> float:
+    """The taps' multiply-adds that this run's bands need: 2x2 texels x 3
+    channels a (pixel, cascade), 4x4 more where the cubic blend engages
+    (csrc/tap.cu), none where the band skips the cascade; weights not
+    counted."""
+    res, nlev, pixels = pyramid[0].shape[-1], len(pyramid), xz.shape[1]
+    sc = scales.cpu().tolist()
+    taps = 0
+    for row in levels.cpu().tolist():
+        for c, lev in enumerate(row):
+            if lev >= nlev:
+                continue
+            n = res >> max(lev, 0)
+            taps += 4 + (16 if min(1.0, n * min(sc[c][0], sc[c][1]) * 0.1) < 1.0 else 0)
+    return 2.0 * 3 * taps * pixels
+
+
+def march_flops(torch, args, found, lo, steps: int, rounds: int) -> float:
+    """The samples that this run's rays need, 4 texels (a multiply and an
+    add each) a sample: up to the first crossing of the `steps`-sample march
+    (all of them where none is found), then `rounds` x 8 refinement samples
+    where one is."""
+    _, _, t0, t1, valid = args[:5]
+    t0, t1, valid = t0.reshape(-1), t1.reshape(-1), valid.reshape(-1)
+    found, lo = found.reshape(-1), lo.reshape(-1)
+    seg = (t1 - t0) / steps
+    first = torch.clamp(torch.floor((lo - t0) / seg) + 1.0, 1.0, float(steps))
+    samples = torch.where(found, first + 8.0 * rounds, torch.full_like(first, steps))
+    return 8.0 * float(torch.where(valid, samples, torch.zeros_like(samples)).sum())
+
+
 def phase_render_timing(torch, dev, maps, scales, tap_args, march_args, card: str) -> dict:
     from godotoceanwaves_tpu_torch.models import geometry
     from godotoceanwaves_tpu_torch.ops import march, tap
@@ -863,14 +971,317 @@ def phase_render_timing(torch, dev, maps, scales, tap_args, march_args, card: st
     k5, k5_plain, t = turns(time_cuda, lambda: tap.gradient_lod_tap_reference(*tap_args),
                             lambda: tap.gradient_lod_tap(*tap_args), iters=3)
     out["K5"] = (k5, k5_plain)
+    pyr, tap_scales, xz, lev = tap_args
+    out["K5_bound"] = bound(nbytes(*pyr, tap_scales, xz, lev, tap.gradient_lod_tap(*tap_args)),
+                            tap_flops(*tap_args))
     log(f"[13] K5 (16 bands x 14720 px, 3 x 1024^2, 4 levels): kernel {k5:.4f} ms, plain "
-        f"{k5_plain:.4f} ms; turns {[round(v, 4) for v in t]}; card {card}")
+        f"{k5_plain:.4f} ms, bound {out['K5_bound'][0]:.4f} ({out['K5_bound'][1]}); "
+        f"turns {[round(v, 4) for v in t]}; card {card}")
     run = dict(march_steps=32, refine_rounds=2)
     k6, k6_plain, t = turns(time_cuda, lambda: march.march_heightfield_reference(*march_args, **run),
                             lambda: march.march_heightfield(*march_args, **run), iters=10)
     out["K6"] = (k6, k6_plain)
+    found, lo, hi = march.march_heightfield(*march_args, **run)
+    tensors = [a for a in march_args if isinstance(a, torch.Tensor)]
+    out["K6_bound"] = bound(nbytes(*tensors, found, lo, hi),
+                            march_flops(torch, march_args, found, lo, run["march_steps"],
+                                        run["refine_rounds"]))
     log(f"[13] K6 (640x360 rays, G=256, 32 steps + 2 rounds): kernel {k6:.4f} ms, plain "
-        f"{k6_plain:.4f} ms; turns {[round(v, 4) for v in t]}; card {card}")
+        f"{k6_plain:.4f} ms, bound {out['K6_bound'][0]:.4f} ({out['K6_bound'][1]}); "
+        f"turns {[round(v, 4) for v in t]}; card {card}")
+    return out
+
+
+def phase_rows_vs_plain(torch, rf, fft, dev) -> dict:
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for l, r, n in ROWS_SHAPES:
+        x = torch.randn((l, 2, r, n), generator=gen, device=dev)
+        for fold in (False, True):
+            before = rf.LAUNCHES
+            got = rf.idft_rows_planes(x, fold_sign=fold)
+            torch.cuda.synchronize()
+            check(rf.LAUNCHES == before + 1, "idft_rows_planes did not launch the kernel")
+            ref = fft.idft_rows_planes(x, fold_sign=fold)
+            e = rel_rms(got, ref)
+            errs[(l, r, n, fold)] = max_abs(got, ref)
+            log(f"[14] K3 ({l}, 2, {r}, {n}) fold_sign={fold}: rel RMS {e:.3e} (<= {TOL_F32:g}), "
+                f"max abs {errs[(l, r, n, fold)]:.3e}")
+            check(e <= TOL_F32, f"K3 at ({l}, 2, {r}, {n}) disagrees with torch.fft")
+            del got, ref
+        del x
+    torch.cuda.empty_cache()
+    return errs
+
+
+def patch0(par, sharded, dev):
+    """Patch 0 of a sharded state or maps, assembled on `dev`."""
+    part = par.sharding.Sharded(sharded.mesh, sharded.blocks[:1]).gather(dev)
+    return type(part)(**{k: v[0] for k, v in vars(part).items()})
+
+
+def compare_fp32(tag, got, ref) -> float:
+    """(disp, normal, foam) at fp32: maps relative, foam absolute RMS."""
+    e_d, e_n, e_f = rel_rms(got[0], ref[0]), rel_rms(got[1], ref[1]), rms(got[2], ref[2])
+    log(f"    {tag}: disp {e_d:.3e}, normal {e_n:.3e} (<= {TOL_F32:g}), foam {e_f:.3e} "
+        f"(<= {TOL_FOAM:g})")
+    check(e_d <= TOL_F32 and e_n <= TOL_F32 and e_f <= TOL_FOAM, f"{tag} disagrees")
+    return max(max_abs(a, b) for a, b in zip(got, ref))
+
+
+def phase_sharded_main(torch, T, par, dev) -> dict:
+    """Config 4's shape on a (1, 8) mesh of the card vs the unsharded step (K1)."""
+    n, rows = MAIN_SIZE, SHARD_ROWS_MAIN
+    base = T.default_cascades(device=dev)
+    params = par.multipatch_params(base.map(lambda x: torch.cat([x, x[:1]])), 1, seed=0)
+    cfg = T.SimConfig(map_size=n)
+    mesh = par.build_mesh([dev] * rows, rows=rows)
+    state = par.make_multichip_init(mesh, cfg)(params)
+    p0 = params.map(lambda x: x[0])
+    ref_state = T.init_state(cfg, p0)
+    first = patch0(par, state, dev)
+    e_init = max(rel_rms(first.h0, ref_state.h0), rel_rms(first.h0nc, ref_state.h0nc))
+    log(f"[15] sharded init (1, {rows}) vs init_state at 4 x {n}^2: h0/h0nc rel RMS {e_init:.3e}")
+    check(e_init <= TOL_F32 and torch.equal(first.omega, ref_state.omega)
+          and torch.equal(first.time, ref_state.time), "the sharded init differs from init_state")
+    step = par.make_multichip_step(mesh, cfg)
+    frames = []
+    reset_counts()
+    for _ in range(SHARD_FRAMES):
+        state, maps = step(state, params, 0.02)
+        frames.append((maps, state))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[15] config 4 sharded (1, {rows}), {SHARD_FRAMES} frames -> launches {counts}")
+    check(counts == only(K3=2 * rows * SHARD_FRAMES),
+          f"expected {2 * rows * SHARD_FRAMES} K3 launches and no other, counted {counts}")
+    err = 0.0
+    for k, (maps, st) in enumerate(frames):
+        ref_state, ref = T.step(cfg, ref_state, p0, 0.02)
+        got = patch0(par, maps, dev)
+        err = max(err, compare_fp32(f"[15] frame {k + 1} vs step() (K1)",
+                                    (got.displacement, got.normal, patch0(par, st, dev).foam),
+                                    (ref.displacement, ref.normal, ref_state.foam)))
+    check(torch.equal(patch0(par, state, dev).time, ref_state.time), "sharded time differs")
+    return {"launches": counts["K3"], "max_abs": err}
+
+
+def phase_sharded_config5(torch, T, par, dev) -> dict:
+    """BASELINE config 5 at 8 patches on a (4, 2) mesh of the card."""
+    from godotoceanwaves_tpu_torch.models import geometry
+    from godotoceanwaves_tpu_torch.models.ocean import OceanMaps
+    from godotoceanwaves_tpu_torch.ops import strip_step
+    n = STRIP_SIZE
+    params = par.multipatch_params(T.models.dual_wind_swell_cascades(device=dev), SHARD_PATCHES)
+    cfg = T.SimConfig(map_size=n, map_dtype="bfloat16")
+    cfg32 = T.SimConfig(map_size=n)
+    mesh = par.build_mesh([dev] * SHARD_PATCHES, rows=SHARD_ROWS_C5)
+    t0 = time.perf_counter()
+    state = par.make_multichip_init(mesh, cfg)(params)
+    torch.cuda.synchronize()
+    log(f"[15] config 5 sharded init, mesh {mesh.shape}, {SHARD_PATCHES} x 2 x {n}^2: "
+        f"{time.perf_counter() - t0:.2f} s")
+    step = par.make_multichip_step(mesh, cfg)
+    positions = SHARD_PATCHES
+    reset_counts()
+    for _ in range(CONFIG5_UPDATES):
+        state, maps = step(state, params, 0.02)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[15] config 5 sharded, {CONFIG5_UPDATES} updates -> launches {counts}")
+    check(counts == only(K3=2 * positions * CONFIG5_UPDATES),
+          f"expected {2 * positions * CONFIG5_UPDATES} K3 launches and no other, counted {counts}")
+
+    t0 = time.perf_counter()
+    host = par.gather_maps(maps)
+    log(f"[15] gather_maps: {tuple(host.displacement.shape)} {host.displacement.dtype} + "
+        f"{tuple(host.normal.shape)} on the host in {time.perf_counter() - t0:.2f} s")
+    check(tuple(host.displacement.shape) == (SHARD_PATCHES, 2, 3, n, n)
+          and tuple(host.normal.shape) == (SHARD_PATCHES, 2, 4, n, n)
+          and host.displacement.dtype == torch.bfloat16 and host.displacement.device.type == "cpu",
+          "gather_maps returned the wrong global maps")
+    stds = []
+    for p in range(SHARD_PATCHES):
+        d, nm = host.displacement[p].float(), host.normal[p].float()
+        check(bool(d.isfinite().all()) and bool(nm.isfinite().all()), f"patch {p} not finite")
+        stds.append([round(float(d[c, 1].std()), 3) for c in range(2)])
+    foam = state.gather(dev).foam
+    coverage = float((foam > 0).float().mean())
+    log(f"[15] config 5 height std per patch and cascade {stds} m, foam in "
+        f"[{float(foam.min()):.3f}, {float(foam.max()):.3f}], coverage {coverage:.3f}")
+    check(float(foam.min()) >= 0.0 and float(foam.max()) <= 1.0, "sharded foam left [0, 1]")
+    check(all(0.1 <= s <= 10.0 for row in stds for s in row), "height std outside 0.1-10 m")
+    del host, foam
+
+    st0, p0 = patch0(par, state, dev), params.map(lambda x: x[0])
+    before = strip_step.LAUNCHES
+    ref_state, ref = T.step(cfg32, st0, p0, 0.02)
+    torch.cuda.synchronize()
+    check(strip_step.LAUNCHES == before + 2, "the single-patch step did not run K4")
+    state32, maps32 = par.make_multichip_step(mesh, cfg32)(state, params, 0.02)
+    got = patch0(par, maps32, dev)
+    err = compare_fp32("[15] config 5 patch 0, one fp32 frame vs step() (K4)",
+                       (got.displacement, got.normal, patch0(par, state32, dev).foam),
+                       (ref.displacement, ref.normal, ref_state.foam))
+    del ref_state, ref, st0, got
+
+    _, want = step(state, params, 0.02)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, checked = step(state, params, 0.02)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(max_abs(patch0(par, checked, dev).displacement, patch0(par, want, dev).displacement)
+          <= 1e-6, "the sync-checked sharded frame differs")
+    log("[15] one sharded config-5 frame under torch.cuda.set_sync_debug_mode('error'): no host "
+        "sync")
+    del want, checked
+
+    ckpt = os.path.join(ROOT, "build", "sharded_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    par.save_sharded(ckpt, state)
+    mesh_b = par.build_mesh([dev] * SHARD_PATCHES, rows=2 * SHARD_ROWS_C5)
+    restored = par.restore_sharded(ckpt, mesh_b, state)
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(ckpt)
+    cont, cont_maps = par.make_multichip_step(mesh_b, cfg32)(restored, params, 0.02)
+    e_foam = max_abs(cont.gather(dev).foam, state32.gather(dev).foam)
+    e_disp = max_abs(cont_maps.gather(dev).displacement, maps32.gather(dev).displacement)
+    log(f"[15] checkpoint on {mesh.shape}, restored on {mesh_b.shape} ({seconds:.2f} s), one "
+        f"frame on: foam max abs {e_foam:.3e} (<= {TOL_RESTORE_FOAM:g}), displacement "
+        f"{e_disp:.3e} (<= {TOL_RESTORE_DISP:g}) vs the unbroken run")
+    check(e_foam <= TOL_RESTORE_FOAM and e_disp <= TOL_RESTORE_DISP,
+          "the restored run differs from the unbroken run")
+    del restored, cont, cont_maps, state32, maps32
+    torch.cuda.empty_cache()
+
+    m0 = patch0(par, maps, dev)
+    maps0 = OceanMaps(displacement=m0.displacement, normal=m0.normal)
+    scales0 = params.map_scales()[0]
+    size = RENDER_LEGS["640x360"]
+    # per-pixel march: the fan march groups rows by the largest divisor of
+    # the band height (geometry._fan_select), 3 rows in a 45-row band
+    # against 4 in the full frame
+    exact = dict(RENDER_TIER, sampler="gather", gradient_lod=False, shade_res=1,
+                 march_impl="xla", **size)
+    dense = geometry.render_ocean_geometry(maps0, scales0, camera_pos=CAM0, **exact)
+    banded = par.render_geometry_sharded(mesh, maps0, scales0, camera_pos=CAM0, **exact)
+    e_band = max_abs(banded, dense)
+    log(f"[15] render_geometry_sharded of patch 0, 640x360 over {SHARD_PATCHES} bands (gather, "
+        f"no LOD, shade_res=1, per-pixel march) vs the dense frame: max abs {e_band:.3e} "
+        f"(<= {TOL_BANDS:g})")
+    check(tuple(banded.shape) == (size["height"], size["width"], 3) and e_band <= TOL_BANDS,
+          "the banded frame differs from the dense frame")
+    img = par.render_geometry_sharded(mesh, maps0, scales0, camera_pos=CAM0, **RENDER_TIER, **size)
+    check(bool(img.isfinite().all()) and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+          "the banded interactive frame is not finite in [0, 1]")
+    hit = par.render_geometry_sharded(mesh, maps0, scales0, camera_pos=CAM0, _debug_stage="march",
+                                      **RENDER_TIER, **size)[..., 1]
+    dense_hit = geometry.render_ocean_geometry(maps0, scales0, camera_pos=CAM0,
+                                               _debug_stage="march", **RENDER_TIER, **size)[..., 1]
+    sky, dense_sky = 1.0 - float(hit.mean()), 1.0 - float(dense_hit.mean())
+    log(f"[15] banded interactive 640x360 frame: mean {float(img.mean()):.4f}, sky share "
+        f"{sky:.4f} (dense frame {dense_sky:.4f})")
+    check(0.01 <= sky <= 0.9 and abs(sky - dense_sky) <= 0.02, f"implausible sky share {sky}")
+    return {"launches": counts["K3"], "max_abs": err, "state": state, "params": params,
+            "mesh": mesh, "config": cfg, "band_err": e_band, "sky": sky}
+
+
+def phase_sharded_timing(torch, T, par, rf, fft, dev, c5, card: str) -> dict:
+    from godotoceanwaves_tpu_torch.models.ocean import OceanState, _foam_rates
+    from godotoceanwaves_tpu_torch.ops import modulate, unpack
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    sh = par.sharding
+    out = {}
+    l, r, n = ROWS_SHAPES[0]
+    x = torch.randn((l, 2, r, n), generator=torch.Generator(device=dev).manual_seed(16),
+                    device=dev)
+    ms, plain_ms, t = turns(time_cuda, lambda: fft.idft_rows_planes(x, fold_sign=True),
+                            lambda: rf.idft_rows_planes(x, fold_sign=True))
+    z = torch.complex(x[:, 0], x[:, 1])
+    lib_ms = time_cuda(lambda: torch.fft.ifft(z, dim=-1, norm="forward"))
+    bnd = bound(2 * nbytes(x), fft_flops(n, l * r))
+    out["K3"] = (ms, plain_ms, lib_ms, bnd)
+    log(f"[16] K3 ({l}, 2, {r}, {n}), ms (CUDA events, best of 3 x 20): kernel {ms:.4f} "
+        f"({2 * nbytes(x) / ms / 1e9:.3f} TB/s of {2 * nbytes(x) / 1e6:.1f} MB), plain "
+        f"{plain_ms:.4f}, torch.fft.ifft alone {lib_ms:.4f}, bound {bnd[0]:.4f} ({bnd[1]}); "
+        f"turns {[round(v, 4) for v in t]}; card {card}")
+    del x, z
+
+    state, params, mesh, cfg = c5["state"], c5["params"], c5["mesh"], c5["config"]
+    step = sh.make_multichip_step(mesh, cfg)
+    carry = [state]
+
+    def one_step():
+        carry[0], _ = step(carry[0], params, 0.02)
+    step_ms = time_cuda(one_step, iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    one_step()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+
+    pl = SHARD_PATCHES // mesh.devices.shape[0]
+    rl = n // mesh.devices.shape[1]
+    pos = list(mesh.positions())
+    local = {(i, j): (state.blocks[i][j], sh._local_params(params, i, pl, d)) for i, j, d in pos}
+
+    def modulate_all():
+        return {k: modulate.modulate_planes(st.h0, st.h0nc, lp.tile_length, cfg.depth,
+                                            st.time + 0.02, cfg.g, omega=st.omega,
+                                            y_offset=k[1] * rl)
+                for k, (st, lp) in local.items()}
+    layers = modulate_all()
+    groups = range(mesh.devices.shape[0])
+    rows_idx = range(mesh.devices.shape[1])
+    ys = {k: sh._row_pass(v, True) for k, v in layers.items()}
+
+    def exchange_all():
+        return {(i, j): y for i in groups
+                for j, y in enumerate(sh.exchange_rows([ys[i, j] for j in rows_idx]))}
+    swapped = exchange_all()
+    fields = {k: sh._row_pass(v, True) for k, v in swapped.items()}
+    col = lambda v: v[..., None, None]
+
+    def unpack_all():
+        out = {}
+        for k, (st, lp) in local.items():
+            grow, decay = _foam_rates(lp, 0.02)
+            out[k] = unpack.unpack_planes(fields[k], st.foam, col(lp.whitecap), col(grow),
+                                          col(decay), pre_shifted=True,
+                                          map_dtype=cfg.resolved_map_dtype())
+        return out
+    split = {
+        "modulate": time_cuda(modulate_all, iters=5, warmup=1),
+        "K3 (both passes)": 2 * time_cuda(lambda: [sh._row_pass(v, True) for v in layers.values()],
+                                          iters=5, warmup=1),
+        "exchange + swap": time_cuda(exchange_all, iters=5, warmup=1),
+        "unpack": time_cuda(unpack_all, iters=5, warmup=1),
+    }
+    del layers, ys, swapped, fields
+
+    g = state.gather(dev)
+    singles = [(OceanState(**{k: v[p] for k, v in vars(g).items()}),
+                params.map(lambda v, p=p: v[p])) for p in range(SHARD_PATCHES)]
+    del g
+    k4_ms = time_cuda(lambda: [T.step(cfg, s, p, 0.02) for s, p in singles], iters=5, warmup=1)
+    del singles
+    torch.cuda.empty_cache()
+    out["step"] = {"ms_per_frame": step_ms, "host_ms_per_frame": host_ms, "split_ms": split,
+                   "eight_K4_steps_ms": k4_ms, "peak_GiB": peak}
+    log(f"[16] config 5 sharded step, {SHARD_PATCHES} x 2 x {n}^2 bf16 on a {mesh.shape} mesh of "
+        f"the card: {step_ms:.4f} ms/frame (CUDA events, best of 3 x 5), host clock "
+        f"{host_ms:.4f} over 5 steps ending in a synchronize; split, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; {SHARD_PATCHES} single-patch step() (K4) {k4_ms:.4f} ms; peak {peak:.3f} GiB above "
+        f"the resident {base / 2 ** 30:.3f} GiB; card {card}")
     return out
 
 
@@ -880,8 +1291,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import godotoceanwaves_tpu_torch as T
+    from godotoceanwaves_tpu_torch import parallel as par
     from godotoceanwaves_tpu_torch.ops import _build, fft, fused_step as fs
-    from godotoceanwaves_tpu_torch.ops import planes_fft as pf, strip_step as ss
+    from godotoceanwaves_tpu_torch.ops import planes_fft as pf, rows_fft as rf, strip_step as ss
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -891,7 +1303,7 @@ def main() -> int:
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
     k1_launches = phase_main_path(torch, T, fs, dev)
-    k1_ms, k1_plain_ms = phase_timing(torch, T, fs, dev, card)
+    k1_ms, k1_plain_ms, k1_bound = phase_timing(torch, T, fs, dev, card)
     strip_errs = phase_strip_vs_plain(torch, T, ss, fs, dev)
     planes_errs = phase_planes_vs_plain(torch, pf, fft, dev)
     c5 = phase_config5(torch, T, dev)
@@ -903,32 +1315,59 @@ def main() -> int:
     path = phase_render_path(torch, dev, ocean)
     rtime = phase_render_timing(torch, dev, path["maps"], path["scales"], tap_res["args"],
                                 march_res["args"], card)
+    del ocean, maps0, path["maps"]
+    torch.cuda.empty_cache()
+    rows_errs = phase_rows_vs_plain(torch, rf, fft, dev)
+    shard4 = phase_sharded_main(torch, T, par, dev)
+    shard5 = phase_sharded_config5(torch, T, par, dev)
+    stime = phase_sharded_timing(torch, T, par, rf, fft, dev, shard5, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    k2_ms, k2_plain_ms = timing[("K2", PLANES_L, STRIP_SIZE)]
+    k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
+    k3_ms, k3_plain_ms, k3_lib_ms, k3_bound = stime["K3"]
     k4_ms, k4_plain_ms = timing["K4"]
+    bounds = lambda b: {"bound_ms": b[0], "bound_by": b[1]}
+    log(json.dumps({"sharded": {
+        "config5": dict(stime["step"], mesh=shard5["mesh"].shape, patches=SHARD_PATCHES,
+                        cascades=2, map_size=STRIP_SIZE, map_dtype="bfloat16",
+                        launches_K3=shard5["launches"], max_abs_err_vs_K4=shard5["max_abs"],
+                        band_max_abs_err=shard5["band_err"], sky_share=shard5["sky"]),
+        "config4_shape": dict(mesh={"patch": 1, "rows": SHARD_ROWS_MAIN}, cascades=4,
+                              map_size=MAIN_SIZE, frames=SHARD_FRAMES,
+                              launches_K3=shard4["launches"], max_abs_err_vs_K1=shard4["max_abs"]),
+    }}))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,
              max_abs_err=errs[(MAIN_SIZE, torch.bfloat16, 1)],
              max_abs_err_fp32=errs[(MAIN_SIZE, torch.float32, 1)],
-             ms=k1_ms, plain_ms=k1_plain_ms),
+             ms=k1_ms, plain_ms=k1_plain_ms, **bounds(k1_bound), library_ms=None,
+             shape=f"4 x {MAIN_SIZE}^2 bf16 maps"),
         dict(KERNELS["K2"], route="cuda", launches=c5["launches_K2"],
              max_abs_err=planes_errs[(STRIP_SIZE, True)],
              max_abs_err_8192=planes_errs[(8192, True)],
-             ms=k2_ms, plain_ms=k2_plain_ms, shape=f"{PLANES_L} x {STRIP_SIZE}^2 planes"),
+             ms=k2_ms, plain_ms=k2_plain_ms, **bounds(k2_bound), library_ms=k2_lib_ms,
+             shape=f"{PLANES_L} x {STRIP_SIZE}^2 planes"),
+        dict(KERNELS["K3"], route="cuda", launches=shard5["launches"],
+             max_abs_err=rows_errs[ROWS_SHAPES[0] + (True,)],
+             max_abs_err_8192=rows_errs[ROWS_SHAPES[-1] + (True,)],
+             ms=k3_ms, plain_ms=k3_plain_ms, **bounds(k3_bound), library_ms=k3_lib_ms,
+             shape="({}, 2, {}, {}) planes, the config-5 shard at rows = 2".format(
+                 *ROWS_SHAPES[0])),
         dict(KERNELS["K4"], route="cuda", launches=c5["launches_K4"],
              max_abs_err=strip_errs[(STRIP_SIZE, torch.bfloat16, 1)],
              max_abs_err_fp32=strip_errs[(STRIP_SIZE, torch.float32, 1)],
-             ms=k4_ms, plain_ms=k4_plain_ms, shape=f"2 x {STRIP_SIZE}^2 bf16 maps"),
+             ms=k4_ms, plain_ms=k4_plain_ms, **bounds(timing["K4_bound"]), library_ms=None,
+             shape=f"2 x {STRIP_SIZE}^2 bf16 maps"),
         dict(KERNELS["K5"], route="cuda", launches=path["launches_K5"],
              max_abs_err=max(tap_res["random"], tap_res["real"]),
              max_abs_err_real_frame=tap_res["real"], ms=rtime["K5"][0], plain_ms=rtime["K5"][1],
+             **bounds(rtime["K5_bound"]), library_ms=None,
              shape=f"16 bands x 14720 px, 3 x {RENDER_MAP}^2 bf16 pyramid, 4 levels"),
         dict(KERNELS["K6"], route="cuda", launches=path["launches_K6"],
              max_abs_err=march_res["max_abs"], found_agree=march_res["agree"],
-             ms=rtime["K6"][0], plain_ms=rtime["K6"][1],
-             shape="640x360 rays, G = 256 table, 32 steps + 2 refine rounds"),
+             ms=rtime["K6"][0], plain_ms=rtime["K6"][1], **bounds(rtime["K6_bound"]),
+             library_ms=None, shape="640x360 rays, G = 256 table, 32 steps + 2 refine rounds"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

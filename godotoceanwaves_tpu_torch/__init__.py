@@ -4,10 +4,11 @@ Mirrors the JAX package's module layout and public names. The per-frame
 step (modulate -> Hermitian-packed 2D IFFT -> unpack + foam) runs on a CUDA
 device through hand-written kernels (`csrc/fused_step.cu` for N <= 1024,
 `csrc/strip_step.cu` for 1024 < N <= 8192, `csrc/planes_fft.cu` as the
-staged path's FFT), and on the CPU through their plain PyTorch versions.
+staged path's FFT, `csrc/rows_fft.cu` as the row-sharded FFT's local pass in
+`parallel`), and on the CPU through their plain PyTorch versions.
 Imports `torch`, never `jax`.
 """
-from . import models, ops
+from . import models, ops, parallel
 from .models import (
     CascadeParams,
     Ocean,
@@ -22,6 +23,6 @@ from .models import (
 
 __version__ = "0.1.0"
 __all__ = [
-    "ops", "models", "CascadeParams", "Ocean", "OceanMaps", "OceanState",
+    "ops", "models", "parallel", "CascadeParams", "Ocean", "OceanMaps", "OceanState",
     "SimConfig", "default_cascades", "init_state", "simulate", "step",
 ]

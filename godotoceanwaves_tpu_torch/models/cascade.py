@@ -26,6 +26,16 @@ import torch
 from ..ops import fused_step, strip_step
 
 
+def require_device(device: torch.device | str) -> torch.device:
+    """`device` as a torch.device; "cuda" with no CUDA device raises instead
+    of running somewhere else. The entry points default to the card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} needs a CUDA device and none is "
+                           "available; pass device='cpu' explicitly to run on the CPU")
+    return device
+
+
 @dataclasses.dataclass
 class CascadeParams:
     """One wave cascade's parameters (or a stack of them with a leading axis).
@@ -61,8 +71,9 @@ class CascadeParams:
         whitecap: float = 0.5,
         foam_amount: float = 5.0,
         spectrum_seed: tuple[int, int] = (0, 0),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "CascadeParams":
+        device = require_device(device)
         if isinstance(tile_length, (int, float)):
             tile_length = (float(tile_length), float(tile_length))
         f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
@@ -133,7 +144,7 @@ DEFAULT_SCENE: tuple[dict, ...] = (
 
 
 def default_cascades(seed: int = 1234, godot_seeds: bool = False,
-                     device: torch.device | str = "cpu") -> CascadeParams:
+                     device: torch.device | str = "cuda") -> CascadeParams:
     """The reference demo scene's 3 cascades (main.tscn:43-83, DEFAULT_SCENE).
 
     Spectrum seeds come from a host RNG fixed like the orchestrator's
@@ -155,7 +166,7 @@ def default_cascades(seed: int = 1234, godot_seeds: bool = False,
 
 
 def dual_wind_swell_cascades(seed: int = 77,
-                             device: torch.device | str = "cpu") -> CascadeParams:
+                             device: torch.device | str = "cuda") -> CascadeParams:
     """A two-spectrum ocean: local wind sea + long-fetch swell (config 5)."""
     rng = np.random.RandomState(seed)
     seeds = [tuple(int(v) for v in rng.randint(-10000, 10001, 2)) for _ in range(2)]

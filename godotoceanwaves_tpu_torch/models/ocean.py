@@ -37,7 +37,8 @@ import torch
 
 from ..ops import fft, fused_step, initial_state, planes_fft, spectra, strip_step
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
-from .cascade import CascadeParams, SimConfig, default_cascades, stack_cascades
+from .cascade import (CascadeParams, SimConfig, default_cascades, require_device,
+                      stack_cascades)
 
 # Cascade time offsets chosen so cascades don't interfere (water.gd:32).
 TIME_OFFSET_BASE = 120.0
@@ -79,22 +80,27 @@ def _f32(x):
     return float(np.float32(x))
 
 
-def _spectrum_one(config: SimConfig, p: CascadeParams):
-    """Initial spectrum for one cascade; alpha/omega_p from wind speed and
-    fetch exactly as wave_generator.gd:68-70 (fetch km -> m)."""
+def _spectrum_one(config: SimConfig, p: CascadeParams, y_offset: int = 0,
+                  rows: int | None = None):
+    """Initial spectrum for one cascade (texel rows y_offset .. y_offset +
+    rows - 1; all by default); alpha/omega_p from wind speed and fetch
+    exactly as wave_generator.gd:68-70 (fetch km -> m)."""
     fetch_m = p.fetch_length * 1e3
     alpha = spectra.jonswap_alpha(p.wind_speed, fetch_m, config.g)
     omega_p = spectra.jonswap_peak_angular_frequency(p.wind_speed, fetch_m, config.g)
     angle = p.wind_direction * float(np.float32(np.pi / 180))   # jnp.deg2rad
     return initial_state.build_initial_spectrum(
         config.map_size, p.spectrum_seed, p.tile_length, alpha, omega_p,
-        p.wind_speed, angle, config.depth, p.swell, p.detail, p.spread, config.g)
+        p.wind_speed, angle, config.depth, p.swell, p.detail, p.spread, config.g,
+        y_offset=y_offset, rows=rows)
 
 
-def generate_spectrum_one(config: SimConfig, p: CascadeParams):
-    """(h0, h0nc) planes, each (2, N, N), for ONE cascade — the dirty-only
-    regeneration granularity (wave_generator.gd:67-72)."""
-    h0, h0nc = _spectrum_one(config, p)
+def generate_spectrum_one(config: SimConfig, p: CascadeParams, y_offset: int = 0,
+                          rows: int | None = None):
+    """(h0, h0nc) planes, each (2, rows, N) ((2, N, N) by default), for ONE
+    cascade — the dirty-only regeneration granularity
+    (wave_generator.gd:67-72) and a row shard's block."""
+    h0, h0nc = _spectrum_one(config, p, y_offset, rows)
     return (torch.stack([h0.real, h0.imag]), torch.stack([h0nc.real, h0nc.imag]))
 
 
@@ -134,6 +140,16 @@ def _foam_rates(p: CascadeParams, dt):
     return grow, decay
 
 
+def ifft2_layers(layers: torch.Tensor, fold_sign: bool, map_size: int) -> torch.Tensor:
+    """The 2D IFFT of (..., 2, N, N) layer planes: the planes kernel on a
+    CUDA device where it covers map_size, `torch.fft` elsewhere and on the
+    CPU."""
+    flat = layers.reshape((-1,) + layers.shape[-3:])
+    fn = (planes_fft.ifft2_packed_planes if planes_fft.covers(map_size)
+          else fft.ifft2_packed_planes)
+    return fn(flat, fold_sign=fold_sign).reshape(layers.shape)
+
+
 def _synthesize(config: SimConfig, h0, h0nc, omega, foam, p: CascadeParams, t, dt):
     """Maps + new foam for the cascades of `p` at modulation time `t`."""
     grow, decay = _foam_rates(p, dt)
@@ -146,9 +162,7 @@ def _synthesize(config: SimConfig, h0, h0nc, omega, foam, p: CascadeParams, t, d
         return kernel_step(h0, h0nc, omega, foam, scal, map_dtype=map_dtype)
     layers = modulate_ops.modulate_planes(h0, h0nc, p.tile_length, config.depth, t,
                                           config.g, omega=omega)
-    covered = planes_fft.covers(config.map_size)
-    ifft = planes_fft.ifft2_packed_planes if covered else fft.ifft2_packed_planes
-    fields = ifft(layers.flatten(0, 1), fold_sign=config.fold_sign).reshape(layers.shape)
+    fields = ifft2_layers(layers, config.fold_sign, config.map_size)
     col = lambda x: x[:, None, None]
     return unpack_ops.unpack_planes(fields, foam, col(p.whitecap), col(grow), col(decay),
                                     pre_shifted=config.fold_sign, map_dtype=map_dtype)
@@ -285,12 +299,9 @@ class Ocean:
         device: torch.device | str = "cuda",
         **config_kwargs: Any,
     ):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Ocean(device='cuda') needs a CUDA device and none is "
-                               "available; pass device='cpu' explicitly to run on the CPU")
+        self.device = require_device(device)
         if params is None:
-            params = default_cascades()
+            params = default_cascades(device=self.device)
         elif isinstance(params, (list, tuple)):
             params = stack_cascades(params)
         self.config = SimConfig(map_size=map_size, **config_kwargs)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "planes_fft_rows": (_P, _P, _I, _I, _P),
     # planes_fft_cols(scratch, out, l, n, fold_sign, stream)
     "planes_fft_cols": (_P, _P, _I, _I, _I, _P),
+    # rows_fft(x, out, l, r, n, fold_sign, stream)
+    "rows_fft": (_P, _P, _I, _I, _I, _I, _P),
     # lod_tap(pyr, scales, xz, levels, out, bands, pixels, cascades, res, nlev, stream)
     "lod_tap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # march_heightfield(table, bx, bz, dy, t0, t1, valid, scal, found, lo, hi,

@@ -17,6 +17,24 @@ import torch
 from . import grid
 
 
+def idft_rows(x: torch.Tensor, fold_sign: bool = False) -> torch.Tensor:
+    """Unnormalized positive-exponent DFT along the last axis of complex `x`
+    (one pass of the reference chain); with fold_sign, output index k is
+    also scaled by (-1)^k."""
+    out = torch.fft.ifft(x, dim=-1, norm="forward")
+    if fold_sign:
+        k = torch.arange(x.shape[-1], device=x.device)
+        out = out * (1.0 - 2.0 * (k % 2).to(torch.float32))
+    return out
+
+
+def idft_rows_planes(x: torch.Tensor, fold_sign: bool = False) -> torch.Tensor:
+    """Plane-pair front end of `idft_rows`: x is (..., 2, R, N) fp32 (Re, Im)
+    planes. The plain version of the rows kernel (`ops/rows_fft.py`)."""
+    out = idft_rows(torch.complex(x[..., 0, :, :], x[..., 1, :, :]), fold_sign)
+    return torch.stack([out.real, out.imag], dim=-3)
+
+
 def ifft2_packed(x: torch.Tensor, fold_sign: bool = False) -> torch.Tensor:
     """transpose(N^2 * ifft2(x)) over the last two axes of complex `x`; with
     fold_sign also multiplied by (-1)^(x+y) (the ifftshift of

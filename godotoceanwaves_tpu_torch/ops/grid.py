@@ -18,8 +18,10 @@ def scalar_div(num: float, den: torch.Tensor) -> torch.Tensor:
     """fp32 `num / den` rounded once, as jnp does it.
 
     `float / tensor` in PyTorch is `den.reciprocal() * num`, two roundings.
+    The numerator is filled on den's device: a tensor built from the Python
+    number would be a host-to-device copy that stalls the host.
     """
-    return torch.tensor(num, dtype=torch.float32, device=den.device) / den
+    return torch.full_like(den, num, dtype=torch.float32) / den
 
 
 def k_grid(map_size: int, tile_length_x: torch.Tensor, tile_length_y: torch.Tensor
@@ -32,10 +34,13 @@ def k_grid(map_size: int, tile_length_x: torch.Tensor, tile_length_y: torch.Tens
     return kx, ky
 
 
-def sign_shift(map_size: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    """(-1)^(x+y) grid, the ifftshift of the centered spectrum (fft_unpack.glsl:37-38)."""
+def sign_shift(map_size: int, device: torch.device | str = "cpu", rows: int | None = None,
+               y_offset: int = 0) -> torch.Tensor:
+    """(-1)^(x+y) grid, the ifftshift of the centered spectrum (fft_unpack.glsl:37-38):
+    (map_size, map_size), or rows y_offset .. y_offset + rows - 1 of it."""
     i = torch.arange(map_size, device=device)
-    odd = (i[:, None] + i[None, :]) % 2
+    y = i if rows is None else torch.arange(rows, device=device) + y_offset
+    odd = (y[:, None] + i[None, :]) % 2
     return 1.0 - 2.0 * odd.to(torch.float32)
 
 

@@ -68,15 +68,22 @@ def build_initial_spectrum(
     detail,
     spread,
     g: float = spectra.G,
+    y_offset: int = 0,
+    rows: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed initial state (h0(k), conj(h0(-k))), each complex64 (N, N).
+    """Packed initial state (h0(k), conj(h0(-k))), each complex64 (rows, N):
+    texel rows y_offset .. y_offset + rows - 1 of the N x N grid (all of it
+    by default).
 
-    The -k companion is evaluated directly at `mod(-id, N)` texel indices
-    (spectrum_compute.glsl:118-124), bit-identical to a flip/roll.
+    The -k companion is evaluated directly at `mod(-id, N)` of the global
+    texel indices (spectrum_compute.glsl:118-124), bit-identical to a
+    flip/roll, so a row-sharded block needs no other rows.
     """
     n = map_size
-    i = torch.arange(n, dtype=torch.int64, device=tile_length.device)
-    ix, iy = i[None, :].expand(n, n), i[:, None].expand(n, n)
+    r = n if rows is None else rows
+    dev = tile_length.device
+    ix = torch.arange(n, dtype=torch.int64, device=dev)[None, :].expand(r, n)
+    iy = (torch.arange(r, dtype=torch.int64, device=dev) + y_offset)[:, None].expand(r, n)
     args = (map_size, seed, tile_length, alpha, peak_frequency, wind_speed,
             angle, depth, swell, detail, spread, g)
     h0 = spectrum_amplitude_at(ix, iy, *args)

@@ -21,27 +21,31 @@ from . import grid, spectra
 
 
 def modulate_planes(
-    h0: torch.Tensor,        # (..., 2, N, N) float32 — (Re, Im) of h0(k)
-    h0nc: torch.Tensor,      # (..., 2, N, N) float32 — (Re, Im) of conj(h0(-k))
+    h0: torch.Tensor,        # (..., 2, rows, N) float32 — (Re, Im) of h0(k)
+    h0nc: torch.Tensor,      # (..., 2, rows, N) float32 — (Re, Im) of conj(h0(-k))
     tile_length: torch.Tensor,  # (..., 2) float32
     depth: float,
     time: torch.Tensor,      # (...) float32
     g: float = spectra.G,
-    omega: torch.Tensor | None = None,   # (..., N, N) float32
+    omega: torch.Tensor | None = None,   # (..., rows, N) float32
+    y_offset: int = 0,
 ) -> torch.Tensor:
-    """The 4 packed layers as fp32 plane pairs, (..., 4, 2, N, N).
+    """The 4 packed layers as fp32 plane pairs, (..., 4, 2, rows, N).
 
-    Leading dimensions are a cascade batch. `omega` is the host-exact
-    dispersion plane (spectra.dispersion_grid_host); None recomputes it.
+    Leading dimensions are a cascade batch. The block holds texel rows
+    y_offset .. y_offset + rows - 1 of the N x N grid (a row shard; all of it
+    by default). `omega` is the host-exact dispersion plane
+    (spectra.dispersion_grid_host); None recomputes it.
     Closed real forms of the packed layers (glsl:71-89):
 
       L0 = (1 + ku_y) * (i h)            L2 = (k_x - k_y ku_y) * (i h)
       L1 = i h ku_x - h k_y              L3 = -ku_x * (h * (k_x + i k_y))
     """
-    n = h0.shape[-1]
-    ids = torch.arange(n, dtype=torch.float32, device=h0.device) - n * 0.5
-    kx = ids[None, :] * grid.scalar_div(grid.TWO_PI, tile_length[..., 0, None, None])
-    ky = ids[:, None] * grid.scalar_div(grid.TWO_PI, tile_length[..., 1, None, None])
+    rows, n = h0.shape[-2], h0.shape[-1]
+    idx = torch.arange(n, dtype=torch.float32, device=h0.device) - n * 0.5
+    idy = torch.arange(rows, dtype=torch.float32, device=h0.device) + y_offset - n * 0.5
+    kx = idx[None, :] * grid.scalar_div(grid.TWO_PI, tile_length[..., 0, None, None])
+    ky = idy[:, None] * grid.scalar_div(grid.TWO_PI, tile_length[..., 1, None, None])
     kx, ky = torch.broadcast_tensors(kx, ky)
     k = torch.sqrt(kx * kx + ky * ky) + 1e-6
     kux = kx / k

@@ -18,21 +18,24 @@ from . import grid
 
 
 def unpack_planes(
-    fields: torch.Tensor,      # (..., 4, 2, N, N) float32 — IFFT'd layer planes
-    foam_prev: torch.Tensor,   # (..., N, N) float32
+    fields: torch.Tensor,      # (..., 4, 2, rows, N) float32 — IFFT'd layer planes
+    foam_prev: torch.Tensor,   # (..., rows, N) float32
     whitecap,                  # scalars broadcastable to (..., N, N)
     foam_grow_rate,
     foam_decay_rate,
     pre_shifted: bool = True,
     map_dtype: torch.dtype = torch.float32,
+    y_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (displacement (..., 3, N, N), normal (..., 4, N, N), foam fp32).
+    """Returns (displacement (..., 3, rows, N), normal (..., 4, rows, N),
+    foam fp32).
 
     Leading dimensions are a cascade batch; pass per-cascade scalars shaped
-    (C, 1, 1).
+    (C, 1, 1). The block holds texel rows y_offset .. y_offset + rows - 1
+    (a row shard), which sets the (-1)^(x+y) sign when not pre_shifted.
     """
-    n = fields.shape[-1]
-    sign = 1.0 if pre_shifted else grid.sign_shift(n, fields.device)
+    rows, n = fields.shape[-2], fields.shape[-1]
+    sign = 1.0 if pre_shifted else grid.sign_shift(n, fields.device, rows, y_offset)
     hx = fields[..., 0, 0, :, :] * sign
     hy = fields[..., 0, 1, :, :] * sign
     hz = fields[..., 1, 0, :, :] * sign

@@ -4,6 +4,10 @@ Both packages then compute from identical inputs:
 
     leaves = {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
     params = params_from_numpy(leaves, device="cpu")
+
+A multipatch `CascadeParams` (P, C) crosses the same way; a sharded JAX state
+crosses gathered to global NumPy arrays and is cut again over the port's
+mesh (`sharded_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from ..models.cascade import CascadeParams
 from ..models.ocean import OceanMaps, OceanState
+from ..parallel.sharding import Mesh, Sharded, shard_state
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -38,6 +43,13 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray],
                      device: torch.device | str = "cpu") -> OceanState:
     """`OceanState` from a {field: ndarray} dict (h0, h0nc, omega, foam, time)."""
     return OceanState(**_tensors(OceanState, leaves, device))
+
+
+def sharded_state_from_numpy(leaves: Mapping[str, np.ndarray], mesh: Mesh) -> Sharded:
+    """A `Sharded` OceanState on `mesh` from the global {field: ndarray} of a
+    multipatch state (h0/h0nc (P, C, 2, N, N), omega/foam (P, C, N, N),
+    time (P, C))."""
+    return shard_state(mesh, state_from_numpy(leaves))
 
 
 def state_to_numpy(state: OceanState) -> dict[str, np.ndarray]:

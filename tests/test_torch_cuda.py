@@ -10,7 +10,8 @@ Tolerances are those of the kernel-vs-plain check in chip_smoke.py: fp32
 maps <= 1e-4 relative RMS, 2-byte maps <= 1e-3 (displacement, relative) and
 <= 2e-3 (normal, RMS), foam <= 1e-4 RMS; the gradient taps (K5) <= 5e-5 max
 abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
-1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean.
+1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean;
+the rows DFT (K3) <= 1e-4 relative RMS.
 """
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ import torch
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
 from godotoceanwaves_tpu_torch.models import geometry, shading
-from godotoceanwaves_tpu_torch.ops import fft, fused_step, march, planes_fft, strip_step, tap
+from godotoceanwaves_tpu_torch import parallel
+from godotoceanwaves_tpu_torch.ops import (fft, fused_step, march, planes_fft, rows_fft,
+                                           strip_step, tap)
 
 pytestmark = pytest.mark.cuda
 
@@ -288,3 +291,45 @@ def test_render_launches_the_kernels_and_makes_no_host_sync(card):
     torch.cuda.synchronize()
     assert march.LAUNCHES == before + 1
     assert bool(pal.isfinite().all())
+
+
+# --- the row-sharded path: K3 (ops/rows_fft.py) under parallel/ -------------
+
+@pytest.mark.parametrize("n,r", [(16, 37), (256, 37), (1024, 128), (2048, 64), (8192, 37)])
+@pytest.mark.parametrize("fold_sign", [False, True])
+def test_rows_kernel_matches_plain(card, n, r, fold_sign):
+    x = torch.from_numpy(np.random.default_rng(n + r).standard_normal(
+        (3, 2, r, n), dtype=np.float32)).to(card)
+    before = rows_fft.LAUNCHES
+    got = rows_fft.idft_rows_planes(x, fold_sign=fold_sign)
+    torch.cuda.synchronize()
+    assert rows_fft.LAUNCHES == before + 1
+    assert rel_rms(got, fft.idft_rows_planes(x, fold_sign=fold_sign)) <= 1e-4
+
+
+def test_rows_kernel_raises_outside_its_sizes(card):
+    with pytest.raises(NotImplementedError, match="rows"):
+        rows_fft.idft_rows_planes(torch.zeros((2, 2, 4, 8), device=card))
+
+
+@pytest.mark.parametrize("n,rows,cascades,module", [(256, 8, 3, fused_step),
+                                                    (2048, 2, 1, strip_step)])
+def test_sharded_step_on_one_card_matches_kernel_step(card, n, rows, cascades, module):
+    """A (1, rows) mesh whose positions are all the card, fp32 maps: the
+    sharded step launches K3 twice a position and matches `step` (K1 at
+    256^2, K4 at 2048^2) on the same state."""
+    cfg = T.SimConfig(map_size=n)
+    base = T.default_cascades(device=card).map(lambda x: x[:cascades])
+    params = parallel.multipatch_params(base, 1, seed=4)
+    mesh = parallel.build_mesh([card] * rows, rows=rows)
+    state = parallel.make_multichip_init(mesh, cfg)(params)
+    p0 = params.map(lambda x: x[0])
+    ref_state = T.init_state(cfg, p0)
+    before = (rows_fft.LAUNCHES, module.LAUNCHES)
+    state, maps = parallel.make_multichip_step(mesh, cfg)(state, params, 0.02)
+    ref_state, ref = T.step(cfg, ref_state, p0, 0.02)
+    torch.cuda.synchronize()
+    assert (rows_fft.LAUNCHES - before[0], module.LAUNCHES - before[1]) == (2 * rows, 2)
+    got = maps.gather(card)
+    assert_close((got.displacement[0], got.normal[0], state.gather(card).foam[0]),
+                 (ref.displacement, ref.normal, ref_state.foam), two_byte=False)

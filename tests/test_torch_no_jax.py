@@ -1,4 +1,5 @@
-"""The PyTorch port steps and renders with JAX, flax and the JAX package unimportable."""
+"""The PyTorch port steps and renders, unsharded and sharded, with JAX, flax and
+the JAX package unimportable."""
 import subprocess
 import sys
 import textwrap
@@ -21,6 +22,34 @@ def test_port_imports_and_steps_without_jax():
                                     sampler="mxu", march_steps=4, bisect_steps=3, shade_res=2)
         assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_port_steps_and_renders_sharded_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "orbax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import torch
+        import godotoceanwaves_tpu_torch as T
+        from godotoceanwaves_tpu_torch import parallel
+        mesh = parallel.build_mesh([torch.device("cpu")] * 4, rows=2)
+        cfg = T.SimConfig(map_size=16)
+        params = parallel.multipatch_params(T.default_cascades(device="cpu"), 2, seed=1)
+        state = parallel.make_multichip_init(mesh, cfg)(params)
+        state, maps = parallel.make_multichip_step(mesh, cfg)(state, params, 0.02)
+        host = parallel.gather_maps(maps)
+        assert host.displacement.shape == (2, 3, 3, 16, 16)
+        assert bool(host.displacement.isfinite().all())
+        one = T.OceanMaps(displacement=host.displacement[0], normal=host.normal[0])
+        img = parallel.render_geometry_sharded(mesh, one, params.map_scales()[0], quality="low",
+                                               width=32, height=16, sampler="mxu",
+                                               march_steps=4, bisect_steps=3, shade_res=2)
+        assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
     """)

@@ -98,7 +98,7 @@ def test_godot_rng_bit_equal(seed):
 
 @pytest.mark.parametrize("godot_seeds", [False, True])
 def test_default_cascades_equal_jax(godot_seeds):
-    got = default_cascades(godot_seeds=godot_seeds)
+    got = default_cascades(godot_seeds=godot_seeds, device="cpu")
     want = jax_default_cascades(godot_seeds=godot_seeds)
     for f in dataclasses.fields(want):
         np.testing.assert_array_equal(getattr(got, f.name).numpy(),
@@ -107,7 +107,7 @@ def test_default_cascades_equal_jax(godot_seeds):
 
 def test_cascade_params_create_clamps_like_jax():
     kw = dict(tile_length=31.0, wind_speed=0.0, fetch_length=-5.0, spectrum_seed=(3, -4))
-    got, want = CascadeParams.create(**kw), JaxParams.create(**kw)
+    got, want = CascadeParams.create(**kw, device="cpu"), JaxParams.create(**kw)
     for f in dataclasses.fields(want):
         np.testing.assert_array_equal(getattr(got, f.name).numpy(),
                                       np.asarray(getattr(want, f.name)), err_msg=f.name)
@@ -141,7 +141,7 @@ def test_initial_spectrum_matches_jax(cascade):
     from godotoceanwaves_tpu.models.cascade import SimConfig as JaxConfig
     import jax
     n = 64
-    p = default_cascades().map(lambda x: x[cascade])
+    p = default_cascades(device="cpu").map(lambda x: x[cascade])
     jp = jax.tree.map(lambda x: x[cascade], jax_default_cascades())
     h0, h0nc = _spectrum_one(SimConfig(map_size=n), p)
     jh0, jh0nc = jax_spectrum_one(JaxConfig(map_size=n), jp)

@@ -59,7 +59,7 @@ def test_synthesize_picks_the_tier(monkeypatch, n, fused, want):
             raise Chosen(label)
         monkeypatch.setattr(module, name, stub)
     cfg = T.SimConfig(map_size=n, fused=fused)
-    params = T.default_cascades().map(lambda x: x[:1])
+    params = T.default_cascades(device="cpu").map(lambda x: x[:1])
     z = lambda *shape: torch.zeros(shape)
     with pytest.raises(Chosen) as chosen:
         tocean._synthesize(cfg, z(1, 2, 4, 4), z(1, 2, 4, 4), z(1, 4, 4), z(1, 4, 4), params,
@@ -98,7 +98,7 @@ def test_resize_across_1024_switches_tiers(monkeypatch):
             calls.append(name)
             return original(*args, **kwargs)
         monkeypatch.setattr(module, name, counting)
-    ocean = T.Ocean(params=T.default_cascades().map(lambda x: x[:1]), map_size=1024,
+    ocean = T.Ocean(params=T.default_cascades(device="cpu").map(lambda x: x[:1]), map_size=1024,
                     updates_per_second=0, device="cpu")
     for n, tier in [(1024, "fused_cascade_step"), (2048, "strip_cascade_step"),
                     (512, "fused_cascade_step")]:

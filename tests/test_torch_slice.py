@@ -101,6 +101,18 @@ def test_ocean_refuses_cuda_without_a_card():
         T.Ocean(map_size=16)
 
 
+@pytest.mark.parametrize("make", ["default_cascades", "dual_wind_swell_cascades", "create"])
+def test_params_default_to_the_card(make):
+    """The params constructors default to device="cuda" and raise without a
+    card instead of running on the CPU; device="cpu" is explicit."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fn = getattr(T.CascadeParams, make) if make == "create" else getattr(T.models, make)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn()
+    assert fn(device="cpu").wind_speed.device.type == "cpu"
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
@@ -176,7 +188,7 @@ def test_step_matches_oracle_128():
     NumPy transcription of the reference shaders: <= 1e-4 relative RMS."""
     n, dt = 128, 0.1
     cfg = T.SimConfig(map_size=n, map_dtype="float32")
-    params = T.default_cascades()
+    params = T.default_cascades(device="cpu")
     _, maps = T.step(cfg, T.init_state(cfg, params), params, dt)
     got_d = maps.displacement[0].numpy().transpose(1, 2, 0)
     got_n = maps.normal[0].numpy().transpose(1, 2, 0)

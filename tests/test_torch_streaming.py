@@ -21,7 +21,7 @@ N = 64
 
 
 def test_dual_wind_swell_preset():
-    params = dual_wind_swell_cascades()
+    params = dual_wind_swell_cascades(device="cpu")
     assert params.num_cascades == 2
     ocean = T.Ocean(params=params, map_size=N, updates_per_second=0, device="cpu")
     for _ in range(5):

@@ -100,7 +100,7 @@ def test_strip_reference_is_the_plain_chain():
     """strip_cascade_step_reference is the modulate -> fft -> unpack chain of
     fused_step's plain version, at any N."""
     n = 32
-    params = T.default_cascades()
+    params = T.default_cascades(device="cpu")
     st = T.init_state(T.SimConfig(map_size=n), params)
     grow, decay = _foam_rates(params, 0.1)
     scal = fused_step.pack_scalars(st.time + 0.1, params.tile_length, params.whitecap,
