@@ -143,7 +143,7 @@ SHARD_ROWS_C5 = 2            # its (4, 2) mesh; the checkpoint restores on (2, 4
 TOL_RESTORE_FOAM = 1e-5      # max abs (tests/test_multihost.py:59-63)
 TOL_RESTORE_DISP = 1e-4
 TOL_BANDS = 1e-4             # max abs, banded vs dense frame (tests/test_sharding.py:204)
-# The card's peaks (the on-chip-measurement guide's table: H100 SXM, 700 W)
+# The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
 
