@@ -140,6 +140,7 @@ SHARD_ROWS_MAIN = 8          # phase 15: config 4's shape on a (1, 8) mesh
 SHARD_FRAMES = 8
 SHARD_PATCHES = 8            # BASELINE config 5: 8 patches (BASELINE.json configs[4])
 SHARD_ROWS_C5 = 2            # its (4, 2) mesh; the checkpoint restores on (2, 4)
+SHARDED_SPANS = ("sharded/modulate", "sharded/rows_dft", "sharded/exchange", "sharded/unpack")
 TOL_RESTORE_FOAM = 1e-5      # max abs (tests/test_multihost.py:59-63)
 TOL_RESTORE_DISP = 1e-4
 TOL_BANDS = 1e-4             # max abs, banded vs dense frame (tests/test_sharding.py:204)
@@ -847,11 +848,13 @@ def phase_render_path(torch, dev, ocean) -> dict:
     return out
 
 
-def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3) -> dict:
+def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3, phase: int = 13,
+                   stem: str = "render_profile", ranges: tuple = ()) -> dict:
     """Device time per frame by kernel under torch.profiler (kernel rows
     only): the device's busy share against the unprofiled host-clock frame
     time, the launch count, and the top kernels (the full table goes to
-    build/, which .gitignore lists)."""
+    build/, which .gitignore lists). `ranges` names record_function spans
+    whose device time (their kernels' time) is returned per frame too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     frame()
@@ -860,8 +863,17 @@ def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3) -> dic
         for _ in range(reps):
             frame()
         torch.cuda.synchronize()
-    rows = []
+    rows, kernel_sums, extents = [], {}, {}
     for e in prof.key_averages():
+        if e.key in ranges:
+            # the CPU row sums the device time of the kernels launched in
+            # the span; the device row is the span's extent on the device
+            on_device = getattr(e, "device_type", None) == DeviceType.CUDA
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0.0)
+            (extents if on_device else kernel_sums)[e.key] = dev_us / reps / 1e3
+            continue
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue            # the ops' rows repeat their kernels' device time
         dev_us = getattr(e, "self_device_time_total", None)
@@ -873,14 +885,19 @@ def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3) -> dic
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with open(os.path.join(ROOT, "build", f"render_profile_{leg.split()[0]}.txt"), "w") as f:
+    with open(os.path.join(ROOT, "build", f"{stem}_{leg.split()[0]}.txt"), "w") as f:
         for ms, count, key in rows:
             f.write(f"{ms:10.4f} ms {count:8.1f} x  {key}\n")
-    log(f"[13] {leg} under torch.profiler: device busy {busy:.3f} ms/frame in {launches:.0f} "
-        f"kernel launches, {busy / host_ms:.1%} of the {host_ms:.3f} ms host-clock frame")
+    log(f"[{phase}] {leg} under torch.profiler: device busy {busy:.3f} ms/frame in "
+        f"{launches:.0f} kernel launches, {busy / host_ms:.1%} of the {host_ms:.3f} ms host-clock "
+        f"frame")
     for ms, count, key in rows[:8]:
-        log(f"[13]     {ms:8.4f} ms/frame {count:6.1f} x  {key[:90]}")
-    return {"busy_ms": busy, "launches": launches, "top": rows[:8]}
+        log(f"[{phase}]     {ms:8.4f} ms/frame {count:6.1f} x  {key[:90]}")
+    spans = {k: kernel_sums.get(k) or extents.get(k, 0.0) for k in set(kernel_sums) | set(extents)}
+    for k in sorted(spans):
+        log(f"[{phase}]     span {k}: kernels {kernel_sums.get(k, 0.0):.4f} ms/frame, device "
+            f"extent {extents.get(k, 0.0):.4f}")
+    return {"busy_ms": busy, "launches": launches, "top": rows[:8], "spans_ms": spans}
 
 
 def tap_flops(pyramid, scales, xz, levels) -> float:
@@ -1188,11 +1205,8 @@ def phase_sharded_config5(torch, T, par, dev) -> dict:
             "mesh": mesh, "config": cfg, "band_err": e_band, "sky": sky}
 
 
-def phase_sharded_timing(torch, T, par, rf, fft, dev, c5, card: str) -> dict:
-    from godotoceanwaves_tpu_torch.models.ocean import OceanState, _foam_rates
-    from godotoceanwaves_tpu_torch.ops import modulate, unpack
+def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
-    sh = par.sharding
     out = {}
     l, r, n = ROWS_SHAPES[0]
     x = torch.randn((l, 2, r, n), generator=torch.Generator(device=dev).manual_seed(16),
@@ -1210,7 +1224,7 @@ def phase_sharded_timing(torch, T, par, rf, fft, dev, c5, card: str) -> dict:
     del x, z
 
     state, params, mesh, cfg = c5["state"], c5["params"], c5["mesh"], c5["config"]
-    step = sh.make_multichip_step(mesh, cfg)
+    step = par.make_multichip_step(mesh, cfg)
     carry = [state]
 
     def one_step():
@@ -1228,60 +1242,37 @@ def phase_sharded_timing(torch, T, par, rf, fft, dev, c5, card: str) -> dict:
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
 
-    pl = SHARD_PATCHES // mesh.devices.shape[0]
-    rl = n // mesh.devices.shape[1]
-    pos = list(mesh.positions())
-    local = {(i, j): (state.blocks[i][j], sh._local_params(params, i, pl, d)) for i, j, d in pos}
+    prof = profile_frames(torch, one_step, f"config5_sharded {mesh.shape}", host_ms, phase=16,
+                          stem="sharded_profile", ranges=SHARDED_SPANS)
+    check(set(prof["spans_ms"]) == set(SHARDED_SPANS),
+          f"the trace lacks spans of the sharded step: {sorted(prof['spans_ms'])}")
+    split = {k.split("/")[1]: v for k, v in prof["spans_ms"].items()}
 
-    def modulate_all():
-        return {k: modulate.modulate_planes(st.h0, st.h0nc, lp.tile_length, cfg.depth,
-                                            st.time + 0.02, cfg.g, omega=st.omega,
-                                            y_offset=k[1] * rl)
-                for k, (st, lp) in local.items()}
-    layers = modulate_all()
-    groups = range(mesh.devices.shape[0])
-    rows_idx = range(mesh.devices.shape[1])
-    ys = {k: sh._row_pass(v, True) for k, v in layers.items()}
+    mesh_81 = par.build_mesh([dev] * SHARD_PATCHES, rows=1)
+    carry_81 = [par.shard_state(mesh_81, carry[0].gather(dev))]
+    step_81 = par.make_multichip_step(mesh_81, cfg)
 
-    def exchange_all():
-        return {(i, j): y for i in groups
-                for j, y in enumerate(sh.exchange_rows([ys[i, j] for j in rows_idx]))}
-    swapped = exchange_all()
-    fields = {k: sh._row_pass(v, True) for k, v in swapped.items()}
-    col = lambda v: v[..., None, None]
-
-    def unpack_all():
-        out = {}
-        for k, (st, lp) in local.items():
-            grow, decay = _foam_rates(lp, 0.02)
-            out[k] = unpack.unpack_planes(fields[k], st.foam, col(lp.whitecap), col(grow),
-                                          col(decay), pre_shifted=True,
-                                          map_dtype=cfg.resolved_map_dtype())
-        return out
-    split = {
-        "modulate": time_cuda(modulate_all, iters=5, warmup=1),
-        "K3 (both passes)": 2 * time_cuda(lambda: [sh._row_pass(v, True) for v in layers.values()],
-                                          iters=5, warmup=1),
-        "exchange + swap": time_cuda(exchange_all, iters=5, warmup=1),
-        "unpack": time_cuda(unpack_all, iters=5, warmup=1),
-    }
-    del layers, ys, swapped, fields
-
-    g = state.gather(dev)
-    singles = [(OceanState(**{k: v[p] for k, v in vars(g).items()}),
-                params.map(lambda v, p=p: v[p])) for p in range(SHARD_PATCHES)]
-    del g
-    k4_ms = time_cuda(lambda: [T.step(cfg, s, p, 0.02) for s, p in singles], iters=5, warmup=1)
-    del singles
+    def one_step_81():
+        carry_81[0], _ = step_81(carry_81[0], params, 0.02)
+    reset_counts()
+    one_step_81()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == only(K4=2 * SHARD_PATCHES),
+          f"a (8, 1) mesh step should be {SHARD_PATCHES} K4 steps, counted {counts}")
+    ms_81 = time_cuda(one_step_81, iters=5, warmup=1)
+    del carry_81
     torch.cuda.empty_cache()
-    out["step"] = {"ms_per_frame": step_ms, "host_ms_per_frame": host_ms, "split_ms": split,
-                   "eight_K4_steps_ms": k4_ms, "peak_GiB": peak}
+    out["step"] = {"ms_per_frame": step_ms, "host_ms_per_frame": host_ms,
+                   "busy_ms_per_frame": prof["busy_ms"], "busy_share": prof["busy_ms"] / host_ms,
+                   "kernel_launches_per_frame": prof["launches"], "split_device_ms": split,
+                   "mesh_8x1_ms_per_frame": ms_81, "peak_GiB": peak}
     log(f"[16] config 5 sharded step, {SHARD_PATCHES} x 2 x {n}^2 bf16 on a {mesh.shape} mesh of "
         f"the card: {step_ms:.4f} ms/frame (CUDA events, best of 3 x 5), host clock "
-        f"{host_ms:.4f} over 5 steps ending in a synchronize; split, ms: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f"; {SHARD_PATCHES} single-patch step() (K4) {k4_ms:.4f} ms; peak {peak:.3f} GiB above "
-        f"the resident {base / 2 ** 30:.3f} GiB; card {card}")
+        f"{host_ms:.4f} over 5 steps ending in a synchronize; device time by span (torch.profiler), "
+        f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; the same state on an (8, 1) mesh ({SHARD_PATCHES} K4 steps) {ms_81:.4f} ms; peak "
+        f"{peak:.3f} GiB above the resident {base / 2 ** 30:.3f} GiB; card {card}")
     return out
 
 
@@ -1320,7 +1311,7 @@ def main() -> int:
     rows_errs = phase_rows_vs_plain(torch, rf, fft, dev)
     shard4 = phase_sharded_main(torch, T, par, dev)
     shard5 = phase_sharded_config5(torch, T, par, dev)
-    stime = phase_sharded_timing(torch, T, par, rf, fft, dev, shard5, card)
+    stime = phase_sharded_timing(torch, par, rf, fft, dev, shard5, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]

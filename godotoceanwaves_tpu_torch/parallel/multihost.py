@@ -96,6 +96,23 @@ def _load_global(path: Path) -> dict[str, torch.Tensor]:
     return out
 
 
+def _global_meta(value: Sharded | OceanState) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Global shape and dtype of each field, read from the blocks' shapes
+    (no data is copied)."""
+    if not isinstance(value, Sharded):
+        return {f.name: (tuple(getattr(value, f.name).shape), getattr(value, f.name).dtype)
+                for f in dataclasses.fields(value)}
+    blocks = value.blocks
+    out = {}
+    for f in dataclasses.fields(blocks[0][0]):
+        x = getattr(blocks[0][0], f.name)
+        shape = [sum(getattr(row[0], f.name).shape[0] for row in blocks), *x.shape[1:]]
+        if f.name in _ROW_FIELDS:
+            shape[-2] = sum(getattr(b, f.name).shape[-2] for b in blocks[0])
+        out[f.name] = (tuple(shape), x.dtype)
+    return out
+
+
 def restore_sharded(path, mesh: Mesh, template: Sharded | OceanState | None = None) -> Sharded:
     """Restore a checkpoint onto `mesh`, whatever layout it was saved from.
 
@@ -105,12 +122,11 @@ def restore_sharded(path, mesh: Mesh, template: Sharded | OceanState | None = No
     tensors = _load_global(Path(path))
     state = OceanState(**tensors)
     if template is not None:
-        ref = template.gather() if isinstance(template, Sharded) else template
-        for f in dataclasses.fields(state):
-            a, b = getattr(state, f.name), getattr(ref, f.name)
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise ValueError(f"checkpoint {f.name} is {tuple(a.shape)} {a.dtype}, the "
-                                 f"template's {tuple(b.shape)} {b.dtype}")
+        want = _global_meta(template)
+        for name, (shape, dtype) in _global_meta(state).items():
+            if (shape, dtype) != want[name]:
+                raise ValueError(f"checkpoint {name} is {shape} {dtype}, the template's "
+                                 f"{want[name][0]} {want[name][1]}")
     return shard_state(mesh, state)
 
 

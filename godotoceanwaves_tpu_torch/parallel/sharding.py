@@ -21,8 +21,15 @@ position on that position's device, and the exchange is a copy between
 positions. A device may stand at several positions: on one card,
 `build_mesh([cuda:0] * 8, rows=2)` runs all eight positions there and the
 exchange is a copy on the card; with one card per position it is a peer copy.
-On a CUDA device the row passes are the rows kernel (`ops/rows_fft.py`) and
-an unsharded FFT (rows == 1) is the planes kernel (`ops/planes_fft.py`).
+On a CUDA device the row passes are the rows kernel (`ops/rows_fft.py`),
+which raises for a row length it does not cover. With rows == 1 a position
+holds whole planes and its cascades take the unsharded `step`, so its map
+size picks the kernel tier as it does for one patch.
+
+The sharded step marks its stages with `torch.profiler.record_function`
+ranges ("sharded/modulate", "sharded/rows_dft", "sharded/exchange",
+"sharded/unpack"), so a profiler trace splits the frame's device time by
+stage.
 """
 from __future__ import annotations
 
@@ -31,11 +38,12 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..models.cascade import CascadeParams, SimConfig, require_device
 from ..models.ocean import (OceanMaps, OceanState, TIME_OFFSET_BASE, TIME_OFFSET_STEP,
-                            _f32, _foam_rates, generate_spectrum_one, ifft2_layers)
-from ..ops import fft, rows_fft, spectra
+                            _f32, _foam_rates, generate_spectrum_one, step as step_one)
+from ..ops import rows_fft, spectra
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
 
 ROWS_AXIS = "rows"
@@ -146,11 +154,9 @@ def shard_state(mesh: Mesh, state: OceanState) -> Sharded:
 
 
 def _row_pass(planes: torch.Tensor, fold_sign: bool) -> torch.Tensor:
-    """The shard-local row DFT of (..., 2, R, N) planes: the rows kernel on
-    a CUDA device where it covers N, else the plain version."""
+    """The shard-local row DFT of (..., 2, R, N) planes (`ops/rows_fft.py`)."""
     flat = planes.contiguous().reshape((-1,) + planes.shape[-3:])
-    fn = rows_fft.idft_rows_planes if rows_fft.covers(planes.shape[-1]) else fft.idft_rows_planes
-    return fn(flat, fold_sign=fold_sign).reshape(planes.shape)
+    return rows_fft.idft_rows_planes(flat, fold_sign=fold_sign).reshape(planes.shape)
 
 
 def exchange_rows(ys: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -185,8 +191,12 @@ def ifft2_planes_sharded(shards: Sequence[torch.Tensor], fold_sign: bool = True
     transpose(N^2 ifft2(x)) (times (-1)^(x+y) with fold_sign), the same
     rows of the output as each input block held.
     """
-    ys = [_row_pass(x, fold_sign) for x in shards]
-    return [_row_pass(y, fold_sign) for y in exchange_rows(ys)]
+    with record_function("sharded/rows_dft"):
+        ys = [_row_pass(x, fold_sign) for x in shards]
+    with record_function("sharded/exchange"):
+        swapped = exchange_rows(ys)
+    with record_function("sharded/rows_dft"):
+        return [_row_pass(y, fold_sign) for y in swapped]
 
 
 def ifft2_packed_sharded(shards: Sequence[torch.Tensor], fold_sign: bool = True
@@ -269,53 +279,72 @@ def make_multichip_init(mesh: Mesh, config: SimConfig):
     return init
 
 
+def _step_whole(config: SimConfig, st: OceanState, lp: CascadeParams, dt
+                ) -> tuple[OceanState, OceanMaps]:
+    """A rows == 1 position: its (P_l, C) cascades go through the unsharded
+    `step` as one batch of P_l C cascades, on the kernel tier of the map
+    size."""
+    pl, c = st.time.shape
+    flat = lambda x: x.reshape((pl * c,) + tuple(x.shape[2:]))
+    unflat = lambda x: x.reshape((pl, c) + tuple(x.shape[1:]))
+    fields = lambda v, fn: {f.name: fn(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    new, maps = step_one(config, OceanState(**fields(st, flat)), lp.map(flat), dt)
+    return OceanState(**fields(new, unflat)), OceanMaps(**fields(maps, unflat))
+
+
 def make_multichip_step(mesh: Mesh, config: SimConfig):
     """Sharded step: (state, params, dt) -> (state, maps), both `Sharded`.
 
     State and maps carry a leading patch axis: h0/h0nc (P, C, 2, N, N), foam
-    (P, C, N, N), maps (P, C, {3, 4}, N, N), cut over the mesh. Per
-    position: modulate its rows; then the 2D IFFT (the row-sharded chain
-    over each rows group, or a whole-plane IFFT when rows == 1); then unpack
-    and foam on its rows. The ifftshift sign is folded into the FFT.
-    `params` (P, C) should sit on the mesh's device(s): a position copies
-    its patches of it to its device.
+    (P, C, N, N), maps (P, C, {3, 4}, N, N), cut over the mesh. With
+    rows > 1, per position: modulate its rows; then the row-sharded 2D IFFT
+    over each rows group, the ifftshift sign folded in; then unpack and foam
+    on its rows. With rows == 1 each position runs the unsharded `step` on
+    its patches. `params` (P, C) should sit on the mesh's device(s): a
+    position copies its patches of it to its device.
     """
     p_dev, r_dev = mesh.devices.shape
     rl = _rows_local(mesh, config)
     map_dtype = config.resolved_map_dtype()
 
+    def step_whole(state: Sharded, params: CascadeParams, dt) -> tuple[Sharded, Sharded]:
+        pl = _patches(mesh, params)
+        out = [_step_whole(config, state.blocks[i][0], _local_params(params, i, pl, dev), dt)
+               for i, _, dev in mesh.positions()]
+        return Sharded(mesh, [[s] for s, _ in out]), Sharded(mesh, [[m] for _, m in out])
+
     def step(state: Sharded, params: CascadeParams, dt) -> tuple[Sharded, Sharded]:
         dt = _f32(dt)
         pl = _patches(mesh, params)
         local = {}
-        for i, j, dev in mesh.positions():
-            st = state.blocks[i][j]
-            lp = _local_params(params, i, pl, dev)
-            t_new = st.time + dt
-            layers = modulate_ops.modulate_planes(st.h0, st.h0nc, lp.tile_length, config.depth,
-                                                  t_new, config.g, omega=st.omega,
-                                                  y_offset=j * rl)
-            local[i, j] = (st, lp, t_new, layers)
+        with record_function("sharded/modulate"):
+            for i, j, dev in mesh.positions():
+                st = state.blocks[i][j]
+                lp = _local_params(params, i, pl, dev)
+                t_new = st.time + dt
+                layers = modulate_ops.modulate_planes(st.h0, st.h0nc, lp.tile_length,
+                                                      config.depth, t_new, config.g,
+                                                      omega=st.omega, y_offset=j * rl)
+                local[i, j] = (st, lp, t_new, layers)
         fields = {}
         for i in range(p_dev):
-            layers = [local[i, j][3] for j in range(r_dev)]
-            out = ([ifft2_layers(layers[0], True, config.map_size)] if r_dev == 1
-                   else ifft2_planes_sharded(layers, fold_sign=True))
+            out = ifft2_planes_sharded([local[i, j][3] for j in range(r_dev)], fold_sign=True)
             fields.update({(i, j): f for j, f in enumerate(out)})
         states = [[None] * r_dev for _ in range(p_dev)]
         maps = [[None] * r_dev for _ in range(p_dev)]
         col = lambda x: x[..., None, None]
-        for i, j, _ in mesh.positions():
-            st, lp, t_new, _ = local[i, j]
-            grow, decay = _foam_rates(lp, dt)
-            disp, normal, foam = unpack_ops.unpack_planes(
-                fields[i, j], st.foam, col(lp.whitecap), col(grow), col(decay),
-                pre_shifted=True, map_dtype=map_dtype)
-            states[i][j] = st.replace(foam=foam, time=t_new)
-            maps[i][j] = OceanMaps(displacement=disp, normal=normal)
+        with record_function("sharded/unpack"):
+            for i, j, _ in mesh.positions():
+                st, lp, t_new, _ = local[i, j]
+                grow, decay = _foam_rates(lp, dt)
+                disp, normal, foam = unpack_ops.unpack_planes(
+                    fields[i, j], st.foam, col(lp.whitecap), col(grow), col(decay),
+                    pre_shifted=True, map_dtype=map_dtype)
+                states[i][j] = st.replace(foam=foam, time=t_new)
+                maps[i][j] = OceanMaps(displacement=disp, normal=normal)
         return Sharded(mesh, states), Sharded(mesh, maps)
 
-    return step
+    return step_whole if r_dev == 1 else step
 
 
 def render_geometry_sharded(mesh: Mesh, maps: OceanMaps, map_scales: torch.Tensor,

@@ -333,3 +333,31 @@ def test_sharded_step_on_one_card_matches_kernel_step(card, n, rows, cascades, m
     got = maps.gather(card)
     assert_close((got.displacement[0], got.normal[0], state.gather(card).foam[0]),
                  (ref.displacement, ref.normal, ref_state.foam), two_byte=False)
+
+
+@pytest.mark.parametrize("n,module", [(256, fused_step), (2048, strip_step)])
+def test_sharded_step_with_one_row_position_runs_the_kernel_tier(card, n, module):
+    """A (2, 1) mesh of the card holding 4 patches: each position runs its
+    2 x C cascades through `step` (one K1 or K4 step, 2 launches) and no K3."""
+    cfg = T.SimConfig(map_size=n)
+    base = T.default_cascades(device=card).map(lambda x: x[:2])
+    params = parallel.multipatch_params(base, 4, seed=6)
+    mesh = parallel.build_mesh([card] * 2, rows=1)
+    state = parallel.make_multichip_init(mesh, cfg)(params)
+    refs = [T.init_state(cfg, params.map(lambda x, p=p: x[p])) for p in range(4)]
+    before = (rows_fft.LAUNCHES, module.LAUNCHES)
+    state, maps = parallel.make_multichip_step(mesh, cfg)(state, params, 0.02)
+    torch.cuda.synchronize()
+    assert (rows_fft.LAUNCHES - before[0], module.LAUNCHES - before[1]) == (0, 4)
+    got, got_state = maps.gather(card), state.gather(card)
+    for p, ref_state in enumerate(refs):
+        ref_state, ref = T.step(cfg, ref_state, params.map(lambda x: x[p]), 0.02)
+        assert_close((got.displacement[p], got.normal[p], got_state.foam[p]),
+                     (ref.displacement, ref.normal, ref_state.foam), two_byte=False)
+
+
+def test_sharded_fft_raises_outside_the_rows_kernel(card):
+    """No plain fallback on the card: rows of 8 are outside K3's sizes."""
+    shards = [torch.zeros((1, 2, 4, 8), device=card) for _ in range(2)]
+    with pytest.raises(NotImplementedError, match="rows"):
+        parallel.sharding.ifft2_planes_sharded(shards)

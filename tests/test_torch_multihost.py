@@ -73,6 +73,12 @@ def test_restore_checks_the_template(tmp_path):
     _, _, other, _ = setup(mesh, num_patches=8)
     with pytest.raises(ValueError, match="template"):
         restore_sharded(tmp_path / "ckpt", mesh, other)
+    with pytest.raises(ValueError, match="template"):
+        restore_sharded(tmp_path / "ckpt", mesh, other.gather())
+    mesh_b = build_mesh([CPU] * 8, rows=4)
+    for template in (state, state.gather()):
+        restored = restore_sharded(tmp_path / "ckpt", mesh_b, template)
+        assert torch.equal(restored.gather().h0, state.gather().h0)
 
 
 @pytest.mark.parametrize("map_dtype", ["float32", "bfloat16"])

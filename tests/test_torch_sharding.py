@@ -208,7 +208,7 @@ def test_sharded_step_matches_jax_rows_kernel_interpret(monkeypatch):
 @pytest.mark.parametrize("rows", [1, 2, 4, 8])
 def test_sharded_step_matches_port_step(rows):
     """Every mesh shape of 8 positions vs the port's unsharded `step`, per
-    patch, over 2 frames (rows == 1 is the unsharded staged FFT)."""
+    patch, over 2 frames (rows == 1 is that `step`, on a batch of cascades)."""
     patches = 8 // rows
     cfg = T.SimConfig(map_size=N)
     params = tsh.multipatch_params(T.default_cascades(device="cpu"), patches, seed=5)
