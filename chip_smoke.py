@@ -22,13 +22,16 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 6. The strip-step kernel pair (K4) against its plain version: N = 2048 with
    config 5's 2 cascades, every map dtype, 1 frame and 3 frames through
    `multi_step`, seeded foam; N = 4096 and 8192 with 1 cascade, fp32 and bf16.
-7. The planes IFFT kernel pair (K2) against `fft.ifft2_packed_planes`
+7. The planes IFFT kernel pair (K2: the rows DFT kernel storing 32-byte
+   column records, then the column pass) against `fft.ifft2_packed_planes`
    (torch.fft): N = 16, 1024, 2048 and 8192, L = 8, both fold_sign values.
 8. Config 5: `Ocean.update` x 48 at 2 cascades x 2048^2 with bf16 maps (K4),
    the same run with fused="never" (K2), compared; then `MapStreamer`'s
    full-resolution, native-dtype and preview legs.
 9. Timing with CUDA events: K4 vs plain ms/frame at config 5, with its row
-   and column passes alone; K2 vs torch.fft at 16 x 1024^2 and 8 x 2048^2.
+   and column passes alone; the staged step (fused="never", K2) at config 5;
+   K2 vs torch.fft at 16 x 1024^2 and 8 x 2048^2 (TB/s, share of the
+   bound, ratio to torch.fft.ifft2).
 10. The LOD gradient-tap kernel (K5) against its plain version (the einsum
     taps): a random case (3 cascades at 1024^2, 4 levels, 16 bands whose
     levels hold 0, the bicubic-blending coarse level and the skip value)
@@ -60,7 +63,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     640x360 over 8 bands against the dense render (gather sampler, no LOD,
     per-pixel march), and at the interactive tier (finite, sky share).
 16. Timing with CUDA events: K3 vs its plain version and `torch.fft.ifft`
-    at the config-5 shard shape; the sharded config-5 step in ms/frame with
+    at the config-5 shard shape (TB/s, share of the bound, ratio); the sharded config-5 step in ms/frame with
     its K3 / exchange / modulate / unpack split, beside 8 single-patch K4
     steps; peak device memory of a sharded step.
 
@@ -90,7 +93,8 @@ CSRC = "godotoceanwaves_tpu_torch/csrc/"
 KERNELS = {
     "K1": dict(name="fused_step (rows + cols)", source=CSRC + "fused_step.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_step.py:328"),
-    "K2": dict(name="planes_fft (rows + cols)", source=CSRC + "planes_fft.cu",
+    "K2": dict(name="planes_fft (rows_fft.cu row pass + planes_fft.cu column pass)",
+               source=CSRC + "planes_fft.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_fft.py:345"),
     "K3": dict(name="rows_fft", source=CSRC + "rows_fft.cu",
                replaces="godotoceanwaves_tpu/ops/pallas_fft.py:529"),
@@ -687,6 +691,18 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
     del ocean, st, args, scratch, disp, normal, foam_out, state
     torch.cuda.empty_cache()
 
+    # the staged tier's frame (fused="never"): modulate, K2, unpack
+    staged = config5_ocean(T, dev, "never")
+    carry = [staged.state]
+
+    def staged_step():
+        carry[0], _ = step(staged.config, carry[0], staged.params, dt)
+    out["staged_step"] = time_cuda(staged_step, iters=20)
+    log(f"[9] config 5 staged step (fused=\"never\", K2 as its FFT), ms/frame (CUDA events, "
+        f"best of 3 x 20): {out['staged_step']:.4f}; card {card}")
+    del staged, carry
+    torch.cuda.empty_cache()
+
     gen = torch.Generator(device=dev).manual_seed(11)
     for l, n in ((16, 1024), (PLANES_L, STRIP_SIZE)):
         x = torch.randn((l, 2, n, n), generator=gen, device=dev)
@@ -696,10 +712,12 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
         lib_ms = time_cuda(lambda: torch.fft.ifft2(z, norm="forward"))
         bnd = bound(2 * nbytes(x), fft_flops(n, 2 * l * n))
         out[("K2", l, n)] = (ms, plain_ms, lib_ms, bnd)
-        moved = 32 * l * n * n
+        moved, through = 2 * nbytes(x), 4 * nbytes(x)   # the function's bytes; the pair's
         log(f"[9] K2 {l} x {n}^2 planes, ms (CUDA events, best of 3 x 20): kernel {ms:.4f} "
-            f"({moved / ms / 1e9:.3f} TB/s of {moved / 1e6:.1f} MB), plain {plain_ms:.4f}, "
-            f"torch.fft.ifft2 alone {lib_ms:.4f}, bound {bnd[0]:.4f} ({bnd[1]}); "
+            f"({moved / ms / 1e9:.3f} TB/s of the function's {moved / 1e6:.1f} MB, "
+            f"{through / ms / 1e9:.3f} TB/s of the {through / 1e6:.1f} MB the pair moves), "
+            f"{bnd[0] / ms:.1%} of its bound {bnd[0]:.4f} ({bnd[1]}), "
+            f"{ms / lib_ms:.3f}x torch.fft.ifft2 alone ({lib_ms:.4f}), plain {plain_ms:.4f}; "
             f"turns {[round(v, 4) for v in t]}; card {card}")
         del x, z
     return out
@@ -1218,8 +1236,9 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     bnd = bound(2 * nbytes(x), fft_flops(n, l * r))
     out["K3"] = (ms, plain_ms, lib_ms, bnd)
     log(f"[16] K3 ({l}, 2, {r}, {n}), ms (CUDA events, best of 3 x 20): kernel {ms:.4f} "
-        f"({2 * nbytes(x) / ms / 1e9:.3f} TB/s of {2 * nbytes(x) / 1e6:.1f} MB), plain "
-        f"{plain_ms:.4f}, torch.fft.ifft alone {lib_ms:.4f}, bound {bnd[0]:.4f} ({bnd[1]}); "
+        f"({2 * nbytes(x) / ms / 1e9:.3f} TB/s of {2 * nbytes(x) / 1e6:.1f} MB), "
+        f"{bnd[0] / ms:.1%} of its bound {bnd[0]:.4f} ({bnd[1]}), {ms / lib_ms:.3f}x "
+        f"torch.fft.ifft alone ({lib_ms:.4f}), plain {plain_ms:.4f}; "
         f"turns {[round(v, 4) for v in t]}; card {card}")
     del x, z
 

@@ -1,163 +1,113 @@
-// 2D IFFT of (L, 2, N, N) fp32 planes for Hopper (sm_90a), 16 <= N <= 8192.
+// 2D IFFT of (L, 2, N, N) fp32 planes for Hopper (sm_90a), 16 <= N <= 8192:
+// the column pass. The row pass is the rows DFT kernel (rows_fft.cu).
 //
 // Replaces godotoceanwaves_tpu/ops/pallas_fft.py `ifft2_packed_planes_pallas`
 // (the Pallas kernel `_ifft2_kernel`): the unnormalized positive-exponent
 // rows -> transpose -> rows chain with no second transpose, so plane l of the
 // output is transpose(N^2 ifft2(x_l)), times (-1)^(x+y) with fold_sign. It is
-// the FFT of the staged step. Two passes over an fp32 scratch, with the FFT
-// core of the strip step (radix2.cuh) and no prologue or epilogue:
+// the FFT of the staged step. Two launches over an fp32 intermediate, both on
+// the register-resident Stockham core (stockham.cuh):
 //
-//   rows: block (4 rows, parity e) x plane l. Reads the Re and Im rows
-//         (contiguous), transforms along x in place (decimation in frequency,
-//         bit-reversed output).
-//   cols: block (column group G, parity e) x plane l. Transforms 4 columns
-//         along y in place (decimation in time, natural output) and writes
-//         them as 4 output rows, Re and Im planes, coalesced along m.
+//   rows: rows_fft with tile = W. Transforms each row along x and stores
+//         element (y, x) at record (x / W, y, x mod W) of the intermediate
+//         (L, 2, N / W, N, W): a row's W consecutive columns are one 32-byte
+//         record of each plane (W = 8), written whole, and the N records of
+//         a column group are one contiguous run.
+//   cols: this kernel. Block (C columns, plane l) reads its columns from the
+//         records in natural y order, transforms them along y and writes
+//         them as C rows of the output, Re and Im planes, with (-1)^(x+y).
 //
-// The column reads are the hard part: a column of one plane is one 4-byte
-// word per 4 N-byte stride. The scratch is therefore laid out
-// (L, N/4, N, 4) complex: the 4 columns of group G at row y are one 32-byte
-// record, and a group's records for all y are one contiguous N * 32-byte
-// run. Thread i of the row pass holds outputs kx = brev(i) + {0, 2, 1, 3}
-// (scaled by the split), which are exactly one group's 4 columns, so it
-// writes whole records; the column pass reads whole records.
+// Thread t of column c holds points y = t + m N/16. The column pass loads
+// with the column index fastest across the warp (consecutive words of the
+// records, so a warp reads whole sectors), runs stage 0 in that mapping and
+// the later stages, after the first exchange, with t fastest, so its stores
+// are contiguous output rows. C = 256 / (N / 16) columns a block (one at
+// N >= 4096, 512 threads at 8192) keeps the block at 256 threads and ~34 KB
+// of shared memory (ops/fft_plan.py); below 8 columns a block reads part of
+// each record, and the blocks of the neighbouring columns, which run at the
+// same time, read the rest of its sectors from L2.
 //
-// Bound: device memory bandwidth. Per plane: 8 N^2 bytes in, 8 N^2 of
-// scratch written and read back, 8 N^2 out (32 bytes per element). At
-// N = 8192 two blocks share each row and column, as in strip_step.cu.
+// Bound: device memory bandwidth, 16 bytes per element in and out. The pair
+// moves 32 (planes in, intermediate out and back, planes out), so its
+// floor through device memory is twice the bound unless the intermediate
+// is read back from L2. Column reads in any order but the records' natural
+// one would cost a scattered sector a lane; the records make them whole.
 #include <cuda_runtime.h>
 
-#include "radix2.cuh"
+#include "stockham.cuh"
 
 namespace {
 
-using namespace radix2;
+using namespace stockham;
 
-constexpr int kMinN = 16;
-constexpr int kMaxN = 8192;
+template <int LOG2N>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+planes_cols_kernel(const float* __restrict__ mid, float* __restrict__ out,
+                   const float2* __restrict__ tw, int cols, int tile, int pitch, int fold_sign) {
+    using Sh = Shape<LOG2N>;
+    constexpr size_t kPlane = static_cast<size_t>(1) << (2 * LOG2N);
+    extern __shared__ float smem[];
+    const int x0 = blockIdx.x * cols;
+    const size_t l0 = static_cast<size_t>(blockIdx.y) * 2 * kPlane;
+    // stage 0: column fastest across the warp
+    const int c0 = threadIdx.x % cols;
+    const int t0 = threadIdx.x / cols;
+    // later stages and the store: t fastest
+    const int c1 = threadIdx.x >> Sh::kLog2T;
+    const int t1 = threadIdx.x & (Sh::kT - 1);
 
-__global__ void __launch_bounds__(kMaxThreads)
-planes_rows_kernel(const float* __restrict__ x, float* __restrict__ scratch,
-                   int n, int split, int log2m) {
-    extern __shared__ float2 smem[];
-    const int m = n / split;
-    float2* buf = smem;                 // kSeqs rows of m
-    float2* tw = smem + kSeqs * m;      // m / 2
-    const int g = blockIdx.x / split;   // rows 4 g .. 4 g + 3
-    const int e = blockIdx.x % split;
-    const size_t l = blockIdx.y;
-    const size_t plane = static_cast<size_t>(n) * n;
-    const float* re = x + l * 2 * plane + static_cast<size_t>(kSeqs) * g * n;
-    const float* im = re + plane;
-
-    fill_twiddles(tw, m);
-    for (int q = threadIdx.x; q < kSeqs * m; q += blockDim.x) {
-        const int j = q & (m - 1);
-        const size_t at = static_cast<size_t>(q >> log2m) * n + j;
-        float2 v = make_float2(re[at], im[at]);
-        if (split == 2) v = split_stage(v, make_float2(re[at + m], im[at + m]), e, j, n);
-        buf[q] = v;
-    }
-    __syncthreads();
-    dif_inplace(buf, tw, m, log2m);
-
-    // Record (l, G, y) holds columns split * (4 (G / split) + r) + G % split,
-    // r = 0..3. Position i + {0, m/2, m/4, 3m/4} of a row holds output
-    // column split * (brev(i) + {0, 1, 2, 3}) + e.
-    float4* out = reinterpret_cast<float4*>(scratch) + l * plane / 2;
-    const int quarter = m >> 2;
-    for (int q = threadIdx.x; q < kSeqs * quarter; q += blockDim.x) {
-        const int s = q / quarter;
-        const int i = q - s * quarter;
-        const size_t group = static_cast<size_t>(split) * (brev(i, log2m) >> 2) + e;
-        const size_t y = static_cast<size_t>(kSeqs) * g + s;
-        const float2* row = buf + s * m;
-        const float2 r0 = row[i], r1 = row[i + 2 * quarter];
-        const float2 r2 = row[i + quarter], r3 = row[i + 3 * quarter];
-        float4* rec = out + (group * n + y) * 2;
-        rec[0] = make_float4(r0.x, r0.y, r1.x, r1.y);
-        rec[1] = make_float4(r2.x, r2.y, r3.x, r3.y);
-    }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-planes_cols_kernel(const float* __restrict__ scratch, float* __restrict__ out,
-                   int n, int split, int log2m, int fold_sign) {
-    extern __shared__ float2 smem[];
-    const int m = n / split;
-    float2* buf = smem;                 // kSeqs columns of m
-    float2* tw = smem + kSeqs * m;
-    const int group = blockIdx.x / split;
-    const int e = blockIdx.x % split;
-    const size_t l = blockIdx.y;
-    const size_t plane = static_cast<size_t>(n) * n;
-    const float4* run = reinterpret_cast<const float4*>(scratch) + l * plane / 2
-                        + static_cast<size_t>(group) * n * 2;
-
-    fill_twiddles(tw, m);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        const int y = brev(i, log2m);
-        float4 a = run[2 * y], b = run[2 * y + 1];
-        float2 v[kSeqs] = {make_float2(a.x, a.y), make_float2(a.z, a.w),
-                           make_float2(b.x, b.y), make_float2(b.z, b.w)};
-        if (split == 2) {
-            a = run[2 * (y + m)];
-            b = run[2 * (y + m) + 1];
-            const float2 hi[kSeqs] = {make_float2(a.x, a.y), make_float2(a.z, a.w),
-                                      make_float2(b.x, b.y), make_float2(b.z, b.w)};
+    const int x = x0 + c0;
+    const size_t run = l0 + (static_cast<size_t>(x / tile) << LOG2N) * tile + (x & (tile - 1));
+    float2 v[kPoints];
 #pragma unroll
-            for (int s = 0; s < kSeqs; ++s) v[s] = split_stage(v[s], hi[s], e, y, n);
-        }
+    for (int m = 0; m < kPoints; ++m) {
+        const size_t at = run + static_cast<size_t>(t0 + m * Sh::kT) * tile;
+        v[m] = make_float2(mid[at], mid[at + kPlane]);
+    }
+    float* re0 = smem + c0 * pitch;
+    float* re1 = smem + c1 * pitch;
+    transform<LOG2N>(v, t0, re0, re0 + cols * pitch, t1, re1, re1 + cols * pitch, tw);
+
+    const int row = x0 + c1;   // output row = the column transformed
+    const size_t o = l0 + (static_cast<size_t>(row) << LOG2N) + t1;
 #pragma unroll
-        for (int s = 0; s < kSeqs; ++s) buf[s * m + i] = v[s];
-    }
-    __syncthreads();
-    dit_inplace(buf, tw, m, log2m);
-
-    float* o_re = out + l * 2 * plane;
-    float* o_im = o_re + plane;
-    const int first = split * kSeqs * (group / split) + group % split;
-    for (int q = threadIdx.x; q < kSeqs * m; q += blockDim.x) {
-        const int kx = first + split * (q >> log2m);     // output row
-        const int col = split * (q & (m - 1)) + e;      // output column
-        const float sign = (fold_sign && ((kx + col) & 1)) ? -1.0f : 1.0f;
-        const float2 v = buf[q];
-        const size_t at = static_cast<size_t>(kx) * n + col;
-        o_re[at] = v.x * sign;
-        o_im[at] = v.y * sign;
+    for (int m = 0; m < kPoints; ++m) {
+        const int k = t1 + m * Sh::kT;
+        const float sign = (fold_sign && ((row + k) & 1)) ? -1.0f : 1.0f;
+        out[o + m * Sh::kT] = v[m].x * sign;
+        out[o + kPlane + m * Sh::kT] = v[m].y * sign;
     }
 }
 
-bool supported(int l, int n) {
-    return l > 0 && l <= 65535 && n >= kMinN && n <= kMaxN && (n & (n - 1)) == 0;
-}
+template <int LOG2N>
+struct Launch {
+    static int run(const float* mid, float* out, const float2* tw, int l, int fold_sign,
+                   int cols, int pitch, int tile, long long smem, cudaStream_t stream) {
+        if (int rc = allow_smem(planes_cols_kernel<LOG2N>, smem)) return rc;
+        planes_cols_kernel<LOG2N><<<dim3((1 << LOG2N) / cols, l),
+                                    cols << Shape<LOG2N>::kLog2T, smem, stream>>>(
+            mid, out, tw, cols, tile, pitch, fold_sign);
+        return static_cast<int>(cudaGetLastError());
+    }
+};
 
 }  // namespace
 
 extern "C" {
 
-// Row pass: x (L, 2, N, N) fp32 -> scratch (L, N/4, N, 4, 2) fp32. Returns a cudaError_t.
-int planes_fft_rows(const float* x, float* scratch, int l, int n, void* stream) {
-    if (!supported(l, n)) return static_cast<int>(cudaErrorInvalidValue);
-    const int split = split_of(n), m = n / split;
-    const size_t smem = smem_bytes(m);
-    if (int rc = allow_smem(planes_rows_kernel, smem)) return rc;
-    planes_rows_kernel<<<dim3(n / kSeqs * split, l), threads_for(m), smem,
-                         static_cast<cudaStream_t>(stream)>>>(x, scratch, n, split, log2_of(m));
-    return static_cast<int>(cudaGetLastError());
-}
-
-// Column pass: scratch -> out (L, 2, N, N) fp32, times (-1)^(x+y) when
-// fold_sign is non-zero. Returns a cudaError_t.
-int planes_fft_cols(const float* scratch, float* out, int l, int n, int fold_sign, void* stream) {
-    if (!supported(l, n)) return static_cast<int>(cudaErrorInvalidValue);
-    const int split = split_of(n), m = n / split;
-    const size_t smem = smem_bytes(m);
-    if (int rc = allow_smem(planes_cols_kernel, smem)) return rc;
-    planes_cols_kernel<<<dim3(n / kSeqs * split, l), threads_for(m), smem,
-                         static_cast<cudaStream_t>(stream)>>>(scratch, out, n, split,
-                                                              log2_of(m), fold_sign);
-    return static_cast<int>(cudaGetLastError());
+// Column pass: mid, the records (L, 2, N / tile, N, tile) that rows_fft
+// stored, -> out (L, 2, N, N) fp32, times (-1)^(x+y) when fold_sign is
+// non-zero. tw is the (N / 2) float2 table e^{+2 pi i j / N}; cols (a power
+// of two dividing N) and pitch are the launch plan. Returns a cudaError_t.
+int planes_fft_cols(const float* mid, float* out, const float* tw, int l, int n, int fold_sign,
+                    int cols, int pitch, int tile, void* stream) {
+    const int log2n = log2_exact(n);
+    const long long smem = plan_smem(log2n, cols, pitch);
+    if (l < 1 || l > 65535 || smem < 0 || cols > n || (cols & (cols - 1)) != 0
+        || tile < 1 || tile > n || (tile & (tile - 1)) != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<Launch>(log2n, mid, out, reinterpret_cast<const float2*>(tw), l, fold_sign,
+                            cols, pitch, tile, smem, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

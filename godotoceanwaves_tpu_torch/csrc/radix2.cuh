@@ -1,5 +1,5 @@
-// Shared-memory radix-2 FFT core of the strip step (strip_step.cu) and the
-// planes IFFT (planes_fft.cu).
+// Shared-memory radix-2 FFT core of the strip step (strip_step.cu). The rows
+// DFT and the planes IFFT run on the register-resident core, stockham.cuh.
 //
 // A block transforms kSeqs sequences of length m (a power of two, m <= kMaxM)
 // held in shared memory as buf[s * m + i], next to a twiddle table of m / 2

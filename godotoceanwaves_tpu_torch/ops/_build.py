@@ -41,12 +41,10 @@ _SIGNATURES = {
     # strip_step_cols(scratch, foam_in, scal, disp, normal, foam_out, c, n,
     #                 dtype, disp_cstride, norm_cstride, stream)
     "strip_step_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P),
-    # planes_fft_rows(x, scratch, l, n, stream)
-    "planes_fft_rows": (_P, _P, _I, _I, _P),
-    # planes_fft_cols(scratch, out, l, n, fold_sign, stream)
-    "planes_fft_cols": (_P, _P, _I, _I, _I, _P),
-    # rows_fft(x, out, l, r, n, fold_sign, stream)
-    "rows_fft": (_P, _P, _I, _I, _I, _I, _P),
+    # planes_fft_cols(mid, out, tw, l, n, fold_sign, cols, pitch, tile, stream)
+    "planes_fft_cols": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # rows_fft(x, out, tw, l, r, n, fold_sign, seqs, pitch, tile, stream)
+    "rows_fft": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # lod_tap(pyr, scales, xz, levels, out, bands, pixels, cascades, res, nlev, stream)
     "lod_tap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # march_heightfield(table, bx, bz, dy, t0, t1, valid, scal, found, lo, hi,

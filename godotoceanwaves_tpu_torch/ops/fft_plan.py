@@ -1,0 +1,138 @@
+"""Launch plans and twiddle tables of the Stockham FFT core
+(`csrc/stockham.cuh`), which the rows DFT (`rows_fft.py`, K3) and the
+planes IFFT (`planes_fft.py`, K2) run on.
+
+A length-N sequence (a power of two, 16 <= N <= 8192) is held by N / 16
+threads, 16 points a thread, and transformed by radix-16 stages, the last of
+radix 2^(log2 N mod 4) where 4 does not divide log2 N, with one exchange
+through shared memory between two stages. A plan chooses how many
+sequences a block holds and how far apart they lie in the exchange buffer
+(the pitch, in 4-byte words), so that no access of an exchange meets
+another on a shared-memory bank where that can be had (every N >= 512;
+two accesses a bank at most below, where a warp spans several sequences).
+`tests/test_torch_fft_plan.py` runs the kernel's stages in NumPy from these
+plans, with the addresses the kernel computes, and holds them to that.
+
+The kernels take the plan as arguments and refuse one that does not fit
+them. Nothing here touches the card except `twiddles`, which builds the
+table on the tensor's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+
+POINTS = 16            # points a thread holds (stockham::kPoints)
+MIN_N, MAX_N = 16, 8192
+MAX_THREADS = 512      # a block (stockham::kMaxThreads)
+SMEM_LIMIT = 232448    # dynamic shared bytes a block can have on the H100 (227 KB)
+TILE = 8               # columns a record of the planes IFFT's intermediate holds (32 bytes)
+ROWS_THREADS = 128     # threads a row-pass block aims at
+COLS_THREADS = 256     # threads a column-pass block aims at
+
+
+def log2(n: int) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"N must be a power of two, got {n}")
+    return n.bit_length() - 1
+
+
+def radices(n: int) -> tuple[int, ...]:
+    """The radix of each stage: 16 until the last, which takes what is left."""
+    bits, out = log2(n), []
+    while bits > 0:
+        out.append(1 << min(4, bits))
+        bits -= min(4, bits)
+    return tuple(out)
+
+
+def pad(stage: int, a: int) -> int:
+    """Padded word index of element `a` in the exchange after `stage`
+    (stockham::pad): a word every 32 after stage 0, 16 every 256 after
+    stage 1, none later."""
+    if stage == 0:
+        return a + (a >> 5)
+    if stage == 1:
+        return a + ((a >> 8) << 4)
+    return a
+
+
+def extent(n: int) -> int:
+    """Words a sequence spans in the exchange buffer (0: one stage, no
+    exchange) (stockham::extent)."""
+    stages = len(radices(n))
+    return 0 if stages < 2 else pad(min(stages - 2, 1), n - 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    n: int
+    seqs: int      # sequences (rows or columns) a block
+    pitch: int     # words between two sequences in the exchange buffer
+    column_major: bool = False   # stage 0 maps consecutive threads to consecutive sequences
+
+    @property
+    def threads_per_seq(self) -> int:
+        return self.n // POINTS
+
+    @property
+    def threads(self) -> int:
+        return self.seqs * self.threads_per_seq
+
+    @property
+    def smem_bytes(self) -> int:
+        """Re and Im words of every sequence of a block."""
+        return 2 * 4 * self.seqs * self.pitch
+
+
+def _pitch(n: int, seqs: int, column_major: bool) -> int:
+    """The extent plus the padding that spreads a warp's sequences over the
+    banks: the column pass's stage 0 puts `seqs` sequences side by side in a
+    warp, so their rows of words start 16 / seqs banks apart; below 32
+    threads a sequence, two words apart."""
+    e = extent(n)
+    if e == 0:
+        return 0
+    if n // POINTS < 32:
+        return e + 2
+    return e + (16 // seqs if column_major and seqs <= 16 else 0)
+
+
+def _check(n: int) -> None:
+    if not (MIN_N <= n <= MAX_N) or n & (n - 1):
+        raise ValueError(f"the Stockham core takes power-of-two N in [{MIN_N}, {MAX_N}], got {n}")
+
+
+@functools.lru_cache(maxsize=None)
+def rows_plan(n: int, threads: int = ROWS_THREADS) -> Plan:
+    """Rows a block: `threads` / (N / 16), at least one."""
+    _check(n)
+    seqs = max(1, threads // (n // POINTS))
+    return Plan(n, seqs, _pitch(n, seqs, False))
+
+
+@functools.lru_cache(maxsize=None)
+def cols_plan(n: int, threads: int = COLS_THREADS) -> Plan:
+    """Columns a block: `threads` / (N / 16), at least one, at most N."""
+    _check(n)
+    seqs = min(n, max(1, threads // (n // POINTS)))
+    return Plan(n, seqs, _pitch(n, seqs, True), column_major=True)
+
+
+_TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}
+
+
+def twiddles(n: int, device) -> torch.Tensor:
+    """(N / 2, 2) fp32 table of e^{+2 pi i j / N}, j < N / 2: computed in
+    float64 on `device`, rounded once, kept per (N, device)."""
+    device = torch.device(device)
+    key = (n, str(device))
+    table = _TWIDDLES.get(key)
+    if table is None:
+        angle = torch.arange(n // 2, dtype=torch.float64, device=device) * (2.0 * math.pi / n)
+        table = torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1).to(torch.float32)
+        _TWIDDLES[key] = table
+    return table

@@ -5,19 +5,21 @@ Replaces `godotoceanwaves_tpu/ops/pallas_fft.py` `ifft2_packed_planes_pallas`
 `fft.ifft2_packed_planes` on a plane stack: plane l of the output is
 transpose(N^2 ifft2(x_l)) (rows -> transpose -> rows with no second
 transpose, unnormalized, positive exponent), times (-1)^(x+y) with
-`fold_sign`. On a CUDA tensor it launches the kernel pair in
-`csrc/planes_fft.cu` (a row pass and a column pass over an fp32 scratch laid
-out in 32-byte records of 4 columns; see the design note there); on a CPU
-tensor it runs `fft.ifft2_packed_planes`, which stays the plain version.
+`fold_sign`. On a CUDA tensor it launches two kernels on the Stockham core
+`csrc/stockham.cuh`: the rows DFT of `csrc/rows_fft.cu` (K3's kernel),
+storing an fp32 intermediate of 32-byte column records, then the column pass
+of `csrc/planes_fft.cu`, which writes the output rows (see the design note
+there). On a CPU tensor it runs `fft.ifft2_packed_planes`, which stays the
+plain version.
 
-The pair is bound by device memory bandwidth: 32 bytes per element (planes
-in, scratch out and back, planes out).
+The function is bound by device memory bandwidth, 16 bytes per element
+(planes in, planes out); the pair moves 32, the intermediate out and back.
 """
 from __future__ import annotations
 
 import torch
 
-from . import fft
+from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
@@ -41,13 +43,17 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
     dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = torch.empty((l, n // 4, n, 4, 2), dtype=torch.float32, device=dev)
+        rows, cols = fft_plan.rows_plan(n), fft_plan.cols_plan(n)
+        tw = fft_plan.twiddles(n, dev)
+        mid = torch.empty_like(x)      # (L, 2, N / TILE, N, TILE) records
         out = torch.empty_like(x)
-        rc = lib.planes_fft_rows(x.data_ptr(), scratch.data_ptr(), l, n, stream)
+        rc = lib.rows_fft(x.data_ptr(), mid.data_ptr(), tw.data_ptr(), l, n, n, 0, rows.seqs,
+                          rows.pitch, fft_plan.TILE, stream)
         if rc:
-            raise RuntimeError(f"planes_fft_rows launch failed: cudaError {rc}")
+            raise RuntimeError(f"planes_fft row pass (rows_fft) launch failed: cudaError {rc}")
         LAUNCHES += 1
-        rc = lib.planes_fft_cols(scratch.data_ptr(), out.data_ptr(), l, n, int(fold_sign), stream)
+        rc = lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
+                                 int(fold_sign), cols.seqs, cols.pitch, fft_plan.TILE, stream)
         if rc:
             raise RuntimeError(f"planes_fft_cols launch failed: cudaError {rc}")
         LAUNCHES += 1

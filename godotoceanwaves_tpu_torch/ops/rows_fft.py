@@ -6,7 +6,8 @@ Replaces `godotoceanwaves_tpu/ops/pallas_fft.py` `idft_rows_planes_pallas`
 `fft.idft_rows_planes`: the unnormalized positive-exponent DFT along the
 last axis of each (Re, Im) plane pair, times (-1)^k on output column k with
 `fold_sign`. On a CUDA tensor it launches the kernel in `csrc/rows_fft.cu`
-(one pass on the in-place FFT core `csrc/radix2.cuh`); on a CPU tensor it
+(one pass of the register-resident Stockham core `csrc/stockham.cuh`, with
+the launch plan and the twiddle table of `fft_plan.py`); on a CPU tensor it
 runs `fft.idft_rows_planes`, which stays the plain version.
 
 The kernel is bound by device memory bandwidth: 16 bytes per complex element
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fft
+from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
@@ -40,9 +41,12 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
     lib = _build.load()
     dev = x.device
     with torch.cuda.device(dev):
+        plan = fft_plan.rows_plan(n)
+        tw = fft_plan.twiddles(n, dev)
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rows_fft(x.data_ptr(), out.data_ptr(), l, r, n, int(fold_sign), stream)
+        rc = lib.rows_fft(x.data_ptr(), out.data_ptr(), tw.data_ptr(), l, r, n, int(fold_sign),
+                          plan.seqs, plan.pitch, 0, stream)
         if rc:
             raise RuntimeError(f"rows_fft launch failed: cudaError {rc}")
         LAUNCHES += 1

@@ -11,7 +11,8 @@ maps <= 1e-4 relative RMS, 2-byte maps <= 1e-3 (displacement, relative) and
 <= 2e-3 (normal, RMS), foam <= 1e-4 RMS; the gradient taps (K5) <= 5e-5 max
 abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
 1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean;
-the rows DFT (K3) <= 1e-4 relative RMS.
+the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
+torch.fft at every N = 16..8192.
 """
 import numpy as np
 import pytest
@@ -123,9 +124,13 @@ def test_strip_kernel_matches_plain(card, n, dtype):
     assert_close(got, want, two_byte=dtype != "float32")
 
 
-@pytest.mark.parametrize("n", [16, 256, 2048, 8192])
+FFT_SIZES = [1 << b for b in range(4, 14)]     # every N the Stockham kernels take
+
+
+@pytest.mark.parametrize("n", FFT_SIZES)
 @pytest.mark.parametrize("fold_sign", [False, True])
 def test_planes_kernel_matches_plain(card, n, fold_sign):
+    """K2 (row pass + column pass) against torch.fft: <= 1e-4 relative RMS."""
     x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, 2, n, n),
                                                                   dtype=np.float32)).to(card)
     before = planes_fft.LAUNCHES
@@ -295,16 +300,42 @@ def test_render_launches_the_kernels_and_makes_no_host_sync(card):
 
 # --- the row-sharded path: K3 (ops/rows_fft.py) under parallel/ -------------
 
-@pytest.mark.parametrize("n,r", [(16, 37), (256, 37), (1024, 128), (2048, 64), (8192, 37)])
+@pytest.mark.parametrize("n", FFT_SIZES)
+@pytest.mark.parametrize("l,r", [(3, 37), (1, 1), (1, 1023)])
 @pytest.mark.parametrize("fold_sign", [False, True])
-def test_rows_kernel_matches_plain(card, n, r, fold_sign):
+def test_rows_kernel_matches_plain(card, n, l, r, fold_sign):
+    """K3 against torch.fft: <= 1e-4 relative RMS, any R (tail rows of a
+    block load zeros and are not stored) and a single plane."""
     x = torch.from_numpy(np.random.default_rng(n + r).standard_normal(
-        (3, 2, r, n), dtype=np.float32)).to(card)
+        (l, 2, r, n), dtype=np.float32)).to(card)
     before = rows_fft.LAUNCHES
     got = rows_fft.idft_rows_planes(x, fold_sign=fold_sign)
     torch.cuda.synchronize()
     assert rows_fft.LAUNCHES == before + 1
     assert rel_rms(got, fft.idft_rows_planes(x, fold_sign=fold_sign)) <= 1e-4
+
+
+@pytest.mark.parametrize("kernel,launches", [("rows", 1), ("planes", 2)])
+def test_fft_kernels_make_no_host_sync(card, kernel, launches):
+    """A call of K3 or K2, its twiddle table included, under
+    set_sync_debug_mode("error"): no host sync, its launches counted, and
+    <= 1e-4 relative RMS against torch.fft."""
+    n = 2048
+    shape = (16, 2, 64, n) if kernel == "rows" else (2, 2, n, n)
+    counter, call, plain = ((rows_fft, rows_fft.idft_rows_planes, fft.idft_rows_planes)
+                            if kernel == "rows" else
+                            (planes_fft, planes_fft.ifft2_packed_planes, fft.ifft2_packed_planes))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape, dtype=np.float32)).to(card)
+    torch.cuda.synchronize()
+    before = counter.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call(x, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + launches
+    assert rel_rms(got, plain(x, True)) <= 1e-4
 
 
 def test_rows_kernel_raises_outside_its_sizes(card):
