@@ -9,10 +9,12 @@ wrappers, against `torch.fft` at every power of two N = 16..8192 and both
 fold_sign values (<= 1e-4 relative RMS); then times, with CUDA events, each
 kernel under a few launch plans (threads a block) at the main path's
 shapes: K3 at the config-5 shard (16, 2, 1024, 2048), K2 at 16 x 1024^2 and
-8 x 2048^2, beside `torch.fft.ifft` / `torch.fft.ifft2` on the same planes
-and the bytes bound (16 bytes an element over 3.35 TB/s). Prints the card's
-name and power limit and one JSON line of the times. Exits non-zero without
-a card or when a check fails.
+8 x 2048^2 (also with other record widths, and over 1, 2 or 4 planes at a
+time), beside `torch.fft.ifft` / `torch.fft.ifft2` on the same planes, a
+`copy_` of the same planes (the bytes without the arithmetic) and the bytes
+bound (16 bytes an element over 3.35 TB/s). Prints the card's name and
+power limit and one JSON line of the times. Exits non-zero without a card
+or when a check fails.
 """
 from __future__ import annotations
 
@@ -42,12 +44,12 @@ def rows_call(lib, x, out, plan, tile=0, fold=True):
                                 plan.seqs, plan.pitch, tile, stream)
 
 
-def cols_call(lib, mid, out, plan, fold=True):
+def cols_call(lib, mid, out, plan, fold=True, tile=fft_plan.TILE):
     l, _, n, _ = out.shape
     tw = fft_plan.twiddles(n, out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     return lambda: lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
-                                       int(fold), plan.seqs, plan.pitch, fft_plan.TILE, stream)
+                                       int(fold), plan.seqs, plan.pitch, tile, stream)
 
 
 def check_all(dev) -> dict:
@@ -80,8 +82,9 @@ def sweep(lib, dev) -> dict:
     for threads in (128, 256, 512):
         plan = fft_plan.rows_plan(2048, threads)
         k3[threads] = time_cuda(rows_call(lib, x, y, plan), iters=50)
+    copy_ms = time_cuda(lambda: y.copy_(x), iters=50)   # the same bytes, no arithmetic
     out["K3 (16, 2, 1024, 2048)"] = dict(ms_by_threads=k3, torch_fft_ifft_ms=lib_ms,
-                                         bound_ms=moved / HBM_TBPS / 1e9)
+                                         copy_ms=copy_ms, bound_ms=moved / HBM_TBPS / 1e9)
     del x, y, z
     for l, n in ((16, 1024), (8, 2048)):
         x = torch.randn((l, 2, n, n), generator=gen, device=dev)
@@ -93,9 +96,21 @@ def sweep(lib, dev) -> dict:
         cols_ms = {t: time_cuda(cols_call(lib, mid, y, fft_plan.cols_plan(n, t)), iters=50)
                    for t in (128, 256, 512)}
         pair_ms = time_cuda(lambda: planes_fft.ifft2_packed_planes(x, True), iters=50)
+        want = planes_fft.ifft2_packed_planes(x, True)
+        widths = {}
+        for tile in (2, 4, 8, 16):        # record width of the intermediate
+            for t in (256, 512):
+                r_c = rows_call(lib, x, mid, fft_plan.rows_plan(n), tile, False)
+                c_c = cols_call(lib, mid, y, fft_plan.cols_plan(n, t), True, tile)
+                y.zero_()
+                r_c()
+                c_c()
+                widths[f"{tile}/{t}"] = (time_cuda(r_c, iters=50), time_cuda(c_c, iters=50),
+                                         rel_rms(y, want))
+                print(f"K2 {l} x {n}^2 records of {tile}, {t}-thread columns: {widths[f'{tile}/{t}']}",
+                      flush=True)
         # the pair over a few planes at a time, one intermediate reused, so
         # the column pass may read what the row pass just wrote from L2
-        want = planes_fft.ifft2_packed_planes(x, True)
         chunked = {}
         for lc in (1, 2, 4):
             part = torch.empty_like(x[:lc])
@@ -114,6 +129,7 @@ def sweep(lib, dev) -> dict:
             print(f"K2 {l} x {n}^2 in chunks of {lc} planes: {chunked[lc]}", flush=True)
         out[f"K2 {l} x {n}^2"] = dict(rows_ms_by_threads=rows_ms, cols_ms_by_threads=cols_ms,
                                       pair_ms=pair_ms, chunked_ms_rel_rms=chunked,
+                                      rows_cols_ms_rel_rms_by_width=widths,
                                       torch_fft_ifft2_ms=lib_ms,
                                       bound_ms=2 * x.numel() * 4 / HBM_TBPS / 1e9)
         del x, mid, y, z
