@@ -1,5 +1,6 @@
 """Utilities: CUDA-event timing, the Godot RNG, JAX-package interchange, map
-streaming, the clipmap mesh."""
+streaming, the clipmap mesh; `fft_sweep`, run as a module, times the FFT
+kernels' launch plans on the card."""
 from .clipmap import build_clipmap_numpy, snap_to_tile
 from .convert import (maps_from_numpy, params_from_numpy, sharded_state_from_numpy,
                       state_from_numpy, state_to_numpy)
