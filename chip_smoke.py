@@ -18,7 +18,11 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    1024^2 with bf16 maps (K1); launch counts, finiteness, foam range, height
    statistics, and agreement with the same run on the staged path, whose FFT
    is the planes kernel (K2).
-5. Timing with CUDA events: K1 vs plain ms/frame at config 4.
+5. Timing with CUDA events: K1 vs plain ms/frame at config 4; K1's row
+   pass and column pass alone through the library calls (TB/s each); the
+   pair's TB/s over the bytes it moves (its function's and the scratch's
+   round trip) and its share of the bound; K2 at 16 x 1024^2 (K1's FFT
+   alone, on the same core) timed in the same phase as the yardstick.
 6. The strip-step kernel pair (K4) against its plain version: N = 2048 with
    config 5's 2 cascades, every map dtype, 1 frame and 3 frames through
    `multi_step`, seeded foam; N = 4096 and 8192 with 1 cascade, fp32 and bf16.
@@ -430,6 +434,53 @@ def turns(time_cuda, plain, kernel, iters=20):
     return min(t[1], t[2]), min(t[0], t[3]), t
 
 
+def time_step_passes(torch, fs, args, dev, card: str) -> dict:
+    """K1's row pass and column pass alone at config 4, on buffers of the
+    wrapper's shapes, through the library calls; K2 at 16 x 1024^2 beside
+    the pair, in turns (pair, K2, K2, pair)."""
+    from godotoceanwaves_tpu_torch.ops import _build, fft_plan, planes_fft
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    h0, h0nc, omega, foam, scal = args
+    lib = _build.load()
+    c, n = h0.shape[0], h0.shape[-1]
+    rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
+    tw = fft_plan.twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
+                          dtype=torch.float32, device=dev)
+    disp = torch.empty((c, 3, n, n), dtype=torch.bfloat16, device=dev)
+    normal = torch.empty((c, 4, n, n), dtype=torch.bfloat16, device=dev)
+    foam_out = torch.empty_like(foam)
+    row_pass = lambda: lib.fused_step_rows(
+        h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(), scal.data_ptr(), tw.data_ptr(),
+        scratch.data_ptr(), c, n, 0, rows.lines, rows.pitch, stream)
+    col_pass = lambda: lib.fused_step_cols(
+        scratch.data_ptr(), foam.data_ptr(), scal.data_ptr(), tw.data_ptr(), disp.data_ptr(),
+        normal.data_ptr(), foam_out.data_ptr(), c, n, 1, disp.stride(0), normal.stride(0),
+        cols.lines, cols.pitch, cols.join_pitch, stream)
+    check(row_pass() == 0 and col_pass() == 0, "a K1 pass failed to launch")
+    rows_ms = time_cuda(row_pass, iters=50)
+    cols_ms = time_cuda(col_pass, iters=50)
+    texels = c * n * n
+    rows_bytes = texels * (8 + 8 + 4 + 32)          # h0, h0nc, omega in; scratch out
+    cols_bytes = texels * (32 + 4 + 4 + 7 * 2)      # scratch, foam in; foam, bf16 maps out
+    x = torch.randn((fft_plan.LAYERS * c, 2, n, n), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    pair = lambda: (row_pass(), col_pass())
+    k2 = lambda: planes_fft.ifft2_packed_planes(x, fold_sign=True)
+    t = [time_cuda(f, iters=50) for f in (pair, k2, k2, pair)]
+    pair_ms, k2_ms = min(t[0], t[3]), min(t[1], t[2])
+    log(f"[5] K1 passes alone at {c} x {n}^2 bf16 (CUDA events, best of 3 x 50; plans rows "
+        f"{rows.lines} x 4 layers, {rows.threads} threads, cols {cols.lines} x 4 layers, "
+        f"{cols.threads} threads): row pass {rows_ms:.4f} ms ({rows_bytes / rows_ms / 1e9:.3f} "
+        f"TB/s of {rows_bytes / 1e6:.1f} MB), column pass {cols_ms:.4f} ms "
+        f"({cols_bytes / cols_ms / 1e9:.3f} TB/s of {cols_bytes / 1e6:.1f} MB); pair by the "
+        f"library calls {pair_ms:.4f} ms, K2 at {x.shape[0]} x {n}^2 {k2_ms:.4f} ms "
+        f"(turns {[round(v, 4) for v in t]}); card {card}")
+    return {"rows_ms": rows_ms, "cols_ms": cols_ms, "pair_ms": pair_ms, "k2_ms": k2_ms,
+            "scratch_bytes": 2 * nbytes(scratch)}
+
+
 def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
     from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, step
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
@@ -461,6 +512,14 @@ def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
         f"plain {plain_ms:.4f}, step() {step_ms:.4f}; turns {[round(x, 4) for x in t]}; "
         f"Ocean.update() host clock over 100 calls {update_ms:.4f}; bound {bnd[0]:.4f} "
         f"({bnd[1]}); card {card}")
+    passes = time_step_passes(torch, fs, args, dev, card)
+    moved = nbytes(*args, *fs.fused_cascade_step(*args, map_dtype=torch.bfloat16))
+    through = moved + passes["scratch_bytes"]
+    log(f"[5] K1 pair {ms:.4f} ms: {moved / ms / 1e9:.3f} TB/s of the function's "
+        f"{moved / 1e6:.1f} MB, {through / ms / 1e9:.3f} TB/s of the {through / 1e6:.1f} MB the "
+        f"pair moves (scratch out and back included), {bnd[0] / ms:.1%} of its bound "
+        f"{bnd[0]:.4f} ({bnd[1]}); K2 at 16 x {MAIN_SIZE}^2 in the same phase "
+        f"{passes['k2_ms']:.4f} ms, K1 / K2 {ms / passes['k2_ms']:.3f}; card {card}")
     return ms, plain_ms, bnd
 
 

@@ -1,40 +1,59 @@
 // Fused ocean step for Hopper (sm_90a): modulate -> 2D IFFT -> unpack + foam.
 //
 // Replaces godotoceanwaves_tpu/ops/pallas_step.py `_fused_call` (the Pallas
-// kernel `_step_kernel` -> `_one_frame`). Two kernels, launched back to back
-// on the caller's stream, in the shape of the GLSL reference (one workgroup
-// per row, shared-memory Stockham, fft_compute.glsl):
+// kernel `_step_kernel` -> `_one_frame`). It is the planes IFFT's pair
+// (rows_fft.cu + planes_fft.cu, K2) over the 4 packed layers of C cascades,
+// with the modulation in front of the row pass and the unpack behind the
+// column pass. Both passes run on the register-resident Stockham core
+// (stockham.cuh): a sequence of N points is held by N/16 threads, 16 points
+// a thread, radix-16 stages in registers, conflict-free exchanges, twiddles
+// from the wrapper's table (ops/fft_plan.py). Two kernels, launched back to
+// back on the caller's stream:
 //
-//   rows: block (row y, cascade c). Prologue: read one row of h0, h0nc and
-//         omega, modulate h(k, t) (phase = omega * t in fp32, accurate
-//         sincosf) and synthesize the 4 packed layers. Then a radix-2
-//         Stockham IFFT of every layer along x in shared memory. Writes
-//         R[c][y][kx][layer][re, im] to an fp32 scratch buffer: the 8 floats
-//         of one texel are one 32-byte sector.
-//   cols: block (column kx, cascade c). Reads column kx of the scratch (one
-//         sector per y), runs the Stockham IFFT along y; the result is OUTPUT
-//         ROW kx (Z[kx][m] = sum_y sum_x X[y][x] w^(x kx + y m)), which is
-//         the reference's rows -> transpose -> rows chain with no second
-//         transpose. Epilogue: (-1)^(kx+m) ifftshift, displacement, normal
-//         from fp32 gradients (rounded once), fp32 foam recurrence.
+//   rows: block (R rows, cascade c), 4 sequences a row, sequence s = layer
+//         s / R of row s mod R. Prologue: thread t modulates texels
+//         x = t + m N/16 of its row (phase = omega * t in fp32, accurate
+//         sincosf) and keeps its layer; the 4 threads of a texel each
+//         evaluate it, and 3 of them find h0, h0nc and omega in L1. Then the
+//         transform along x, and element (y, k) of layer l goes to record
+//         (k / 8, y, k mod 8) of plane (c, l) of the scratch
+//         (C, 4, 2, N/8, N, 8) fp32: a warp stores whole 32-byte sectors.
+//   cols: block (C columns, cascade c), 4 sequences a column. Stage 0 loads
+//         with the sequence fastest across the warp (consecutive columns of
+//         a record; the blocks of the neighbouring columns read the rest of
+//         its sectors from L2) and the later stages run t fastest. The
+//         transform along y of column kx is OUTPUT ROW kx (the reference's
+//         rows -> transpose -> rows chain with no second transpose). The
+//         join: each thread writes its layer's 16 outputs to shared memory
+//         (reusing the exchange buffer), and after a barrier unpacks a
+//         quarter of its column's outputs, m = t + (layer + 4 j) N/16, from
+//         all 4 layers: consecutive lanes hold consecutive m, so the map and
+//         foam accesses stay contiguous. Epilogue: (-1)^(kx+m) ifftshift
+//         (once, in texel::unpack), displacement, normal from fp32 gradients
+//         (rounded once), fp32 foam recurrence.
 //
 // Bound: device memory bandwidth. Per cascade-frame at 1024^2: 20 MB of
-// spectra + omega in, 32 MB of scratch written and read back, 4 MB of foam in
-// and out, 14 MB of bf16 maps out (~106 MB). The two-pass design pays one
-// scratch round trip so that no block ever holds a whole layer; both passes
-// read and write full 32-byte sectors.
+// spectra + omega in, 4 MB of foam in and 4 out, 14 MB of bf16 maps out
+// (~44 MB, 0.013 ms at 3.35 TB/s), plus 32 MB of scratch written and read
+// back, which the two-pass form pays so that no block holds a whole layer.
+// What kept the first version (a radix-2 shared-memory core) at ~4x its
+// bound was the work between loads and stores: 10 passes through shared
+// memory with two barriers each, bank conflicts at small strides, 512
+// sincospif a block for its twiddles, and one column a column-pass block.
+// The Stockham core leaves 1-2 exchanges and reads a float64-built table.
 //
 // Accuracy: no fast math. omega * t reaches ~6.7e3 rad at 1024^2 (t ~ 126 s),
-// so sincosf keeps its full range reduction, and the FFT twiddles come from
-// sincospif(2j/N), whose argument is exact for power-of-two N.
+// so sincosf keeps its full range reduction.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include "stockham.cuh"
 #include "texel.cuh"
 
 namespace {
 
+using namespace stockham;
 using texel::kLayers;
 using texel::NUM_SCALARS;
 using texel::S_DECAY;
@@ -42,192 +61,234 @@ using texel::S_DT;
 using texel::S_GROW;
 using texel::S_TIME;
 using texel::S_WHITECAP;
-// 4 layers x N/2 butterflies per stage, over N/4 threads.
-constexpr int kButterfliesPerThread = 8;
-constexpr int kMinN = 16;
-constexpr int kMaxN = 1024;
+constexpr int kStepMaxLog2N = 10;   // N <= 1024; larger maps are the strip step's (K4)
+constexpr int kTile = 8;             // columns a scratch record holds (32 bytes)
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-    return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+// Layer l of a texel's 4, without indexing a register array by a variable.
+__device__ __forceinline__ float2 pick(const float2 (&v)[kLayers], int l) {
+    return l == 0 ? v[0] : l == 1 ? v[1] : l == 2 ? v[2] : v[3];
 }
 
-// tw[j] = e^{+2 pi i j / n}, j < n/2.
-__device__ void fill_twiddles(float2* tw, int n) {
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-        float s, c;
-        sincospif(static_cast<float>(2 * j) / static_cast<float>(n), &s, &c);
-        tw[j] = make_float2(c, s);
-    }
-}
-
-// In-place radix-2 Stockham (decimation in frequency, natural-order output)
-// of 4 layers of length n held in buf[layer * n + i]; unnormalized, positive
-// exponent. Needs blockDim.x == n / 4 and a barrier before the call. Each
-// stage reads every element once into registers, syncs, then writes.
-__device__ void stockham_layers(float2* buf, const float2* tw, int n, int log2n) {
-    const int half = n >> 1;
-    for (int ls = 0; ls < log2n; ++ls) {
-        const int s = 1 << ls;
-        float2 lo[kButterfliesPerThread], hi[kButterfliesPerThread];
-        int dst[kButterfliesPerThread];
-#pragma unroll
-        for (int i = 0; i < kButterfliesPerThread; ++i) {
-            const int g = threadIdx.x + i * blockDim.x;
-            const int layer = g >> (log2n - 1);
-            const int b = g & (half - 1);          // b = q + s * p
-            const int q = b & (s - 1);
-            const int p = b >> ls;
-            const float2* x = buf + layer * n;
-            const float2 a = x[b];
-            const float2 c = x[b + half];
-            lo[i] = make_float2(a.x + c.x, a.y + c.y);
-            hi[i] = cmul(make_float2(a.x - c.x, a.y - c.y), tw[p << ls]);
-            dst[i] = layer * n + q + (p << (ls + 1));
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kButterfliesPerThread; ++i) {
-            buf[dst[i]] = lo[i];
-            buf[dst[i] + s] = hi[i];
-        }
-        __syncthreads();
-    }
-}
-
-__global__ void rows_kernel(const float* __restrict__ h0,
-                            const float* __restrict__ h0nc,
-                            const float* __restrict__ omega,
-                            const float* __restrict__ scal,
-                            float* __restrict__ scratch,
-                            int n, int log2n, int frame) {
-    extern __shared__ float2 smem[];
-    float2* buf = smem;                   // kLayers * n
-    float2* tw = smem + kLayers * n;      // n / 2
-    const int y = blockIdx.x;
+template <int LOG2N>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
+                 const float* __restrict__ omega, const float* __restrict__ scal,
+                 const float2* __restrict__ tw, float* __restrict__ scratch, int rows,
+                 int pitch, int frame) {
+    using Sh = Shape<LOG2N>;
+    constexpr int kN = 1 << LOG2N;
+    constexpr size_t kPlane = static_cast<size_t>(1) << (2 * LOG2N);
+    extern __shared__ float smem[];
+    const int seqs = rows * kLayers;
+    const int s = threadIdx.x >> Sh::kLog2T;
+    const int t = threadIdx.x & (Sh::kT - 1);
+    const int layer = s / rows;
+    const int y = blockIdx.x * rows + (s - layer * rows);
     const int c = blockIdx.y;
     const float* sc = scal + c * NUM_SCALARS;
     // frame k modulates at S_TIME + k * S_DT, rounded as two fp32 ops
-    const float t = __fadd_rn(sc[S_TIME], __fmul_rn(static_cast<float>(frame), sc[S_DT]));
-    const texel::Row r = texel::row_at(h0, h0nc, omega, sc, c, y, n, t);
+    const float time = __fadd_rn(sc[S_TIME], __fmul_rn(static_cast<float>(frame), sc[S_DT]));
+    const texel::Row r = texel::row_at(h0, h0nc, omega, sc, c, y, kN, time);
 
-    fill_twiddles(tw, n);
-
-    for (int x = threadIdx.x; x < n; x += blockDim.x) {
-        float2 v[kLayers];
-        texel::modulate(r, x, v);
+    float2 v[kPoints];
 #pragma unroll
-        for (int l = 0; l < kLayers; ++l) buf[l * n + x] = v[l];
+    for (int m = 0; m < kPoints; ++m) {
+        float2 lay[kLayers];
+        texel::modulate(r, t + m * Sh::kT, lay);
+        v[m] = pick(lay, layer);
     }
-    __syncthreads();
-    stockham_layers(buf, tw, n, log2n);
+    float* re = smem + s * pitch;
+    float* im = re + seqs * pitch;
+    transform<LOG2N>(v, t, re, im, t, re, im, tw);
 
-    float4* out = reinterpret_cast<float4*>(scratch) + ((static_cast<size_t>(c) * n + y) * n) * 2;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-        const float2 l0 = buf[k], l1 = buf[n + k], l2 = buf[2 * n + k], l3 = buf[3 * n + k];
-        out[2 * k] = make_float4(l0.x, l0.y, l1.x, l1.y);
-        out[2 * k + 1] = make_float4(l2.x, l2.y, l3.x, l3.y);
+    // element (y, k) -> record (k / 8, y, k mod 8) of plane (c, layer), Re and Im
+    float* out = scratch + (static_cast<size_t>(c) * kLayers + layer) * 2 * kPlane
+                 + static_cast<size_t>(y) * kTile;
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+        const int k = t + m * Sh::kT;
+        const size_t o = (static_cast<size_t>(k / kTile) << LOG2N) * kTile + (k & (kTile - 1));
+        out[o] = v[m].x;
+        out[o + kPlane] = v[m].y;
     }
 }
 
-template <typename OutT>
-__global__ void cols_kernel(const float* __restrict__ scratch,
-                            const float* foam_in,     // may alias foam_out
-                            const float* __restrict__ scal,
-                            OutT* __restrict__ disp,
-                            OutT* __restrict__ normal,
-                            float* foam_out,
-                            int n, int log2n,
-                            long long disp_cstride, long long norm_cstride) {
-    extern __shared__ float2 smem[];
-    float2* buf = smem;
-    float2* tw = smem + kLayers * n;
-    const int kx = blockIdx.x;            // output row
+template <int LOG2N, typename OutT>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+step_cols_kernel(const float* __restrict__ scratch,
+                 const float* foam_in,     // may alias foam_out
+                 const float* __restrict__ scal, const float2* __restrict__ tw,
+                 OutT* __restrict__ disp, OutT* __restrict__ normal, float* foam_out, int cols,
+                 int pitch, int jpitch, long long disp_cstride, long long norm_cstride) {
+    using Sh = Shape<LOG2N>;
+    constexpr size_t kPlane = static_cast<size_t>(1) << (2 * LOG2N);
+    extern __shared__ float smem[];
+    const int seqs = cols * kLayers;
+    const int x0 = blockIdx.x * cols;
     const int c = blockIdx.y;
-    const float* sc = scal + c * NUM_SCALARS;
+    // stage 0: sequence (layer s / cols, column s mod cols) fastest across the warp
+    const int s0 = threadIdx.x % seqs;
+    const int t0 = threadIdx.x / seqs;
+    // later stages, the join and the epilogue: t fastest
+    const int s1 = threadIdx.x >> Sh::kLog2T;
+    const int t1 = threadIdx.x & (Sh::kT - 1);
 
-    fill_twiddles(tw, n);
+    float2 v[kPoints];
+    {
+        const int layer = s0 / cols;
+        const int x = x0 + (s0 - layer * cols);
+        const float* run = scratch + (static_cast<size_t>(c) * kLayers + layer) * 2 * kPlane
+                           + (static_cast<size_t>(x / kTile) << LOG2N) * kTile + (x & (kTile - 1));
+#pragma unroll
+        for (int m = 0; m < kPoints; ++m) {
+            const size_t at = static_cast<size_t>(t0 + m * Sh::kT) * kTile;
+            v[m] = make_float2(run[at], run[at + kPlane]);
+        }
+    }
+    float* re0 = smem + s0 * pitch;
+    float* re1 = smem + s1 * pitch;
+    transform<LOG2N>(v, t0, re0, re0 + seqs * pitch, t1, re1, re1 + seqs * pitch, tw);
 
-    const size_t plane = static_cast<size_t>(n) * n;
-    const float4* in = reinterpret_cast<const float4*>(scratch) + c * plane * 2;
-    for (int y = threadIdx.x; y < n; y += blockDim.x) {
-        const size_t at = (static_cast<size_t>(y) * n + kx) * 2;
-        const float4 a = in[at];
-        const float4 b = in[at + 1];
-        buf[y] = make_float2(a.x, a.y);
-        buf[n + y] = make_float2(a.z, a.w);
-        buf[2 * n + y] = make_float2(b.x, b.y);
-        buf[3 * n + y] = make_float2(b.z, b.w);
+    // the join: layer outputs t1 + m T of every sequence in shared memory
+    __syncthreads();   // every thread has read the last exchange
+    float* jre = smem;
+    float* jim = smem + seqs * jpitch;
+#pragma unroll
+    for (int m = 0; m < kPoints; ++m) {
+        jre[s1 * jpitch + t1 + m * Sh::kT] = v[m].x;
+        jim[s1 * jpitch + t1 + m * Sh::kT] = v[m].y;
     }
     __syncthreads();
-    stockham_layers(buf, tw, n, log2n);
 
+    const int layer = s1 / cols;
+    const int col = s1 - layer * cols;
+    const int kx = x0 + col;   // output row
+    const float* sc = scal + c * NUM_SCALARS;
     const float whitecap = sc[S_WHITECAP];
     const float grow = sc[S_GROW];
     const float keep = expf(-sc[S_DECAY]);
-    const size_t row = static_cast<size_t>(kx) * n;
+    const size_t row = static_cast<size_t>(kx) << LOG2N;
     OutT* d = disp + c * disp_cstride + row;
     OutT* nm = normal + c * norm_cstride + row;
-    const float* fi = foam_in + c * plane + row;
-    float* fo = foam_out + c * plane + row;
-    for (int m = threadIdx.x; m < n; m += blockDim.x) {
-        fo[m] = texel::unpack<OutT>(buf[m], buf[n + m], buf[2 * n + m], buf[3 * n + m], kx, m,
-                                    fi[m], keep, whitecap, grow, d, nm, plane);
+    const float* fi = foam_in + c * kPlane + row;
+    float* fo = foam_out + c * kPlane + row;
+#pragma unroll
+    for (int j = 0; j < kPoints / kLayers; ++j) {
+        const int m = t1 + (layer + kLayers * j) * Sh::kT;
+        float2 l[kLayers];
+#pragma unroll
+        for (int q = 0; q < kLayers; ++q) {
+            const int w = (q * cols + col) * jpitch + m;
+            l[q] = make_float2(jre[w], jim[w]);
+        }
+        // the thread that reads fi[m] writes fo[m]: in place is safe
+        fo[m] = texel::unpack<OutT>(l[0], l[1], l[2], l[3], kx, m, fi[m], keep, whitecap, grow,
+                                    d, nm, kPlane);
     }
 }
 
-int log2_of(int n) {
-    int l = 0;
-    while ((1 << l) < n) ++l;
-    return l;
+// The dynamic shared bytes of a plan (the exchange buffer, or the join
+// buffer where that is larger), or -1 if it does not fit the kernels.
+long long step_smem(int log2n, int lines, int pitch, int jpitch, int n) {
+    if (log2n < kMinLog2N || log2n > kStepMaxLog2N || lines < 1 || lines > n
+        || (lines & (lines - 1)) != 0 || jpitch < 0)
+        return -1;
+    const int seqs = lines * kLayers;
+    const long long exchange = plan_smem(log2n, seqs, pitch);
+    const long long join = 2LL * seqs * jpitch * sizeof(float);
+    if (exchange < 0) return -1;
+    const long long bytes = exchange > join ? exchange : join;
+    return bytes > 232448 ? -1 : bytes;
 }
 
-bool supported(int c, int n) {
-    return c > 0 && c <= 65535 && n >= kMinN && n <= kMaxN && (n & (n - 1)) == 0;
-}
-
-size_t smem_bytes(int n) {
-    return (kLayers * n + n / 2) * sizeof(float2);
-}
+template <int LOG2N>
+struct RowsLaunch {
+    static int run(const float* h0, const float* h0nc, const float* omega, const float* scal,
+                   const float2* tw, float* scratch, int c, int frame, int rows, int pitch,
+                   long long smem, cudaStream_t stream) {
+        if constexpr (LOG2N > kStepMaxLog2N) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        } else {
+            if (int rc = allow_smem(step_rows_kernel<LOG2N>, smem)) return rc;
+            step_rows_kernel<LOG2N><<<dim3((1 << LOG2N) / rows, c),
+                                      (rows * kLayers) << Shape<LOG2N>::kLog2T, smem, stream>>>(
+                h0, h0nc, omega, scal, tw, scratch, rows, pitch, frame);
+            return static_cast<int>(cudaGetLastError());
+        }
+    }
+};
 
 template <typename OutT>
-int launch_cols(const float* scratch, const float* foam_in, const float* scal,
-                void* disp, void* normal, float* foam_out, int c, int n,
-                long long disp_cstride, long long norm_cstride, cudaStream_t stream) {
-    cols_kernel<OutT><<<dim3(n, c), n / 4, smem_bytes(n), stream>>>(
-        scratch, foam_in, scal, static_cast<OutT*>(disp), static_cast<OutT*>(normal),
-        foam_out, n, log2_of(n), disp_cstride, norm_cstride);
-    return static_cast<int>(cudaGetLastError());
-}
+struct ColsFor {
+    template <int LOG2N>
+    struct Launch {
+        static int run(const float* scratch, const float* foam_in, const float* scal,
+                       const float2* tw, void* disp, void* normal, float* foam_out, int c,
+                       int cols, int pitch, int jpitch, long long disp_cstride,
+                       long long norm_cstride, long long smem, cudaStream_t stream) {
+            if constexpr (LOG2N > kStepMaxLog2N) {
+                return static_cast<int>(cudaErrorInvalidValue);
+            } else {
+                if (int rc = allow_smem(step_cols_kernel<LOG2N, OutT>, smem)) return rc;
+                step_cols_kernel<LOG2N, OutT><<<dim3((1 << LOG2N) / cols, c),
+                                                (cols * kLayers) << Shape<LOG2N>::kLog2T, smem,
+                                                stream>>>(
+                    scratch, foam_in, scal, tw, static_cast<OutT*>(disp),
+                    static_cast<OutT*>(normal), foam_out, cols, pitch, jpitch, disp_cstride,
+                    norm_cstride);
+                return static_cast<int>(cudaGetLastError());
+            }
+        }
+    };
+};
 
 }  // namespace
 
 extern "C" {
 
-// Row pass for frame `frame` of C cascades at N x N. Returns a cudaError_t.
-int fused_step_rows(const float* h0, const float* h0nc, const float* omega,
-                    const float* scal, float* scratch, int c, int n, int frame,
-                    void* stream) {
-    if (!supported(c, n)) return static_cast<int>(cudaErrorInvalidValue);
-    rows_kernel<<<dim3(n, c), n / 4, smem_bytes(n), static_cast<cudaStream_t>(stream)>>>(
-        h0, h0nc, omega, scal, scratch, n, log2_of(n), frame);
-    return static_cast<int>(cudaGetLastError());
+// Row pass for frame `frame` of C cascades at N x N: h0/h0nc (C, 2, N, N),
+// omega (C, N, N) and the scalar rows in, the scratch records
+// (C, 4, 2, N/8, N, 8) out. tw is the (N / 2) float2 table
+// e^{+2 pi i j / N}; rows (a power of two dividing N) and pitch are the
+// launch plan (ops/fft_plan.py step_rows_plan). Returns a cudaError_t.
+int fused_step_rows(const float* h0, const float* h0nc, const float* omega, const float* scal,
+                    const float* tw, float* scratch, int c, int n, int frame, int rows,
+                    int pitch, void* stream) {
+    const int log2n = log2_exact(n);
+    const long long smem = step_smem(log2n, rows, pitch, 0, n);
+    if (c < 1 || c > 65535 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<RowsLaunch>(log2n, h0, h0nc, omega, scal, reinterpret_cast<const float2*>(tw),
+                                scratch, c, frame, rows, pitch, smem,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // Column pass + unpack + foam. `dtype`: 0 float32, 1 bfloat16, 2 float16.
 // disp / normal point at cascade 0 of this frame; the cascade strides are in
-// elements. Returns a cudaError_t.
+// elements. cols (a power of two dividing N), pitch and jpitch (>= N) are
+// the launch plan (ops/fft_plan.py step_cols_plan). Returns a cudaError_t.
 int fused_step_cols(const float* scratch, const float* foam_in, const float* scal,
-                    void* disp, void* normal, float* foam_out, int c, int n, int dtype,
-                    long long disp_cstride, long long norm_cstride, void* stream) {
-    if (!supported(c, n)) return static_cast<int>(cudaErrorInvalidValue);
+                    const float* tw, void* disp, void* normal, float* foam_out, int c, int n,
+                    int dtype, long long disp_cstride, long long norm_cstride, int cols,
+                    int pitch, int jpitch, void* stream) {
+    const int log2n = log2_exact(n);
+    const long long smem = step_smem(log2n, cols, pitch, jpitch, n);
+    if (c < 1 || c > 65535 || smem < 0 || jpitch < n)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto* w = reinterpret_cast<const float2*>(tw);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch_cols<float>(scratch, foam_in, scal, disp, normal, foam_out,
-                                          c, n, disp_cstride, norm_cstride, s);
-        case 1: return launch_cols<__nv_bfloat16>(scratch, foam_in, scal, disp, normal,
-                                                  foam_out, c, n, disp_cstride, norm_cstride, s);
-        case 2: return launch_cols<__half>(scratch, foam_in, scal, disp, normal, foam_out,
-                                           c, n, disp_cstride, norm_cstride, s);
+        case 0:
+            return dispatch<ColsFor<float>::Launch>(log2n, scratch, foam_in, scal, w, disp, normal,
+                                                    foam_out, c, cols, pitch, jpitch,
+                                                    disp_cstride, norm_cstride, smem, s);
+        case 1:
+            return dispatch<ColsFor<__nv_bfloat16>::Launch>(
+                log2n, scratch, foam_in, scal, w, disp, normal, foam_out, c, cols, pitch, jpitch,
+                disp_cstride, norm_cstride, smem, s);
+        case 2:
+            return dispatch<ColsFor<__half>::Launch>(log2n, scratch, foam_in, scal, w, disp,
+                                                     normal, foam_out, c, cols, pitch, jpitch,
+                                                     disp_cstride, norm_cstride, smem, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from . import shading
+from .cascade import require_device
 from ..utils.clipmap import _axis_coords
 
 # the reference ships two clipmap gradings of a 512x512 m plane
@@ -422,14 +423,15 @@ def _fan_select(sample_h, cam, d, t0, t1, marchable,
 
 def camera_rays(width: int, height: int, pitch_deg, yaw_deg, fov_deg,
                 row_offset=0, row_count: int | None = None,
-                device: torch.device | str = "cpu") -> torch.Tensor:
+                device: torch.device | str = "cuda") -> torch.Tensor:
     """Pixel ray directions (H, W, 3) for the FlyCamera basis convention.
 
     `row_offset`/`row_count` select a horizontal band of the full frame;
     `row_offset` may be a 0-d tensor, `row_count` is static. Pose arguments
-    may be Python numbers or 0-d tensors (on `device`).
+    may be Python numbers or 0-d tensors (on `device`). Defaults to the card
+    and raises without one; pass device="cpu" to stay on the CPU.
     """
-    device = torch.device(device)
+    device = require_device(device)
     rows = height if row_count is None else row_count
     pitch = torch.deg2rad(_scalar(pitch_deg, device))
     tan_half = torch.tan(torch.deg2rad(_scalar(fov_deg, device)) / 2)

@@ -1,6 +1,6 @@
 """Launch plans and twiddle tables of the Stockham FFT core
-(`csrc/stockham.cuh`), which the rows DFT (`rows_fft.py`, K3) and the
-planes IFFT (`planes_fft.py`, K2) run on.
+(`csrc/stockham.cuh`), which the rows DFT (`rows_fft.py`, K3), the planes
+IFFT (`planes_fft.py`, K2) and the fused step (`fused_step.py`, K1) run on.
 
 A length-N sequence (a power of two, 16 <= N <= 8192) is held by N / 16
 threads, 16 points a thread, and transformed by radix-16 stages, the last of
@@ -12,6 +12,10 @@ another on a shared-memory bank where that can be had (every N >= 512;
 two accesses a bank at most below, where a warp spans several sequences).
 `tests/test_torch_fft_plan.py` runs the kernel's stages in NumPy from these
 plans, with the addresses the kernel computes, and holds them to that.
+
+The fused step's plans (`step_rows_plan`, `step_cols_plan`) hold 4 layer
+sequences for each row or column of a block, and its column pass a join
+buffer through which the 4 layers of an output texel meet (`join_pitch`).
 
 The kernels take the plan as arguments and refuse one that does not fit
 them. Nothing here touches the card except `twiddles`, which builds the
@@ -32,6 +36,10 @@ SMEM_LIMIT = 232448    # dynamic shared bytes a block can have on the H100 (227 
 TILE = 8               # columns a record of the planes IFFT's intermediate holds (32 bytes)
 ROWS_THREADS = 128     # threads a row-pass block aims at
 COLS_THREADS = 256     # threads a column-pass block aims at
+LAYERS = 4             # packed layers of the fused step (texel::kLayers)
+STEP_MAX_N = 1024      # the fused step's largest N
+STEP_ROWS_THREADS = 256   # threads a fused row-pass block aims at
+STEP_COLS_THREADS = 512   # threads a fused column-pass block aims at
 
 
 def log2(n: int) -> int:
@@ -70,9 +78,16 @@ def extent(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class Plan:
     n: int
-    seqs: int      # sequences (rows or columns) a block
+    seqs: int      # sequences a block: layers x lines (rows or columns)
     pitch: int     # words between two sequences in the exchange buffer
     column_major: bool = False   # stage 0 maps consecutive threads to consecutive sequences
+    layers: int = 1     # sequences of one line; sequence s is layer s / lines of line s mod lines
+    join_pitch: int = 0   # words between two sequences in the join buffer (0: no join)
+
+    @property
+    def lines(self) -> int:
+        """Rows or columns a block."""
+        return self.seqs // self.layers
 
     @property
     def threads_per_seq(self) -> int:
@@ -84,8 +99,9 @@ class Plan:
 
     @property
     def smem_bytes(self) -> int:
-        """Re and Im words of every sequence of a block."""
-        return 2 * 4 * self.seqs * self.pitch
+        """Re and Im words of every sequence of a block, in the exchange
+        buffer or in the join buffer, which reuses it."""
+        return 2 * 4 * self.seqs * max(self.pitch, self.join_pitch)
 
 
 def _pitch(n: int, seqs: int, column_major: bool) -> int:
@@ -120,6 +136,36 @@ def cols_plan(n: int, threads: int = COLS_THREADS) -> Plan:
     _check(n)
     seqs = min(n, max(1, threads // (n // POINTS)))
     return Plan(n, seqs, _pitch(n, seqs, True), column_major=True)
+
+
+def _check_step(n: int) -> None:
+    if not (MIN_N <= n <= STEP_MAX_N) or n & (n - 1):
+        raise ValueError(f"the fused step takes power-of-two N in [{MIN_N}, {STEP_MAX_N}], "
+                         f"got {n}")
+
+
+@functools.lru_cache(maxsize=None)
+def step_rows_plan(n: int, threads: int = STEP_ROWS_THREADS) -> Plan:
+    """The fused row pass: rows a block, each as 4 layer sequences,
+    `threads` / (4 N / 16) rows, at least one, at most N."""
+    _check_step(n)
+    lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
+    seqs = LAYERS * lines
+    return Plan(n, seqs, _pitch(n, seqs, False), layers=LAYERS)
+
+
+@functools.lru_cache(maxsize=None)
+def step_cols_plan(n: int, threads: int = STEP_COLS_THREADS) -> Plan:
+    """The fused column pass: columns a block, each as 4 layer sequences,
+    `threads` / (4 N / 16) columns, at least one, at most N. Its join buffer
+    holds each sequence's N outputs, N + N / 16 words apart below 32 threads
+    a sequence so that a warp's sequences start on different banks."""
+    _check_step(n)
+    t = n // POINTS
+    lines = min(n, max(1, threads // (LAYERS * t)))
+    seqs = LAYERS * lines
+    return Plan(n, seqs, _pitch(n, seqs, True), column_major=True, layers=LAYERS,
+                join_pitch=n + (t if t < 32 else 0))
 
 
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}

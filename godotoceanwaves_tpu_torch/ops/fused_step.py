@@ -4,13 +4,16 @@ Replaces `godotoceanwaves_tpu/ops/pallas_step.py` `_fused_call` (the Pallas
 kernel `_step_kernel` -> `_one_frame`, reached through `fused_cascade_step`
 and `fused_cascade_multi_step`). On a CUDA tensor the wrappers launch the
 hand-written kernel pair in `csrc/fused_step.cu` (a row pass and a column
-pass; see the design note there); on a CPU tensor they run the plain
-PyTorch version built from `modulate`, `fft` and `unpack`.
+pass on the Stockham core `csrc/stockham.cuh`, with the launch plans and
+twiddle table of `fft_plan`; see the design note there); on a CPU tensor
+they run the plain PyTorch version built from `modulate`, `fft` and
+`unpack`.
 
-The pair is bound by device memory bandwidth: about 106 MB per cascade-frame
-at 1024^2 (spectra, omega and foam in; 32 MB of fp32 scratch written and read
-back; bf16 maps out). It pays one scratch round trip in exchange for never
-holding a whole layer on chip.
+The pair is bound by device memory bandwidth: about 44 MB per cascade-frame
+at 1024^2 (spectra, omega and foam in; foam and bf16 maps out), plus a
+32 MB fp32 scratch written and read back, (C, 4, 2, N/8, N, 8): each layer's
+Re and Im planes as 32-byte records of 8 columns. It pays that round trip in
+exchange for never holding a whole layer on chip.
 
 What the TPU kernel needed and this one does not: the VMEM-resident
 four-step DFT, the sigma digit un-swap, the map-dtype keeper planes (normals
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fft, modulate, unpack
+from . import fft, fft_plan, modulate, unpack
 
 # Per-cascade scalar row layout (pallas_step.py:43). S_TIME is frame 0's
 # modulation time; frame k modulates at S_TIME + k * S_DT.
@@ -116,23 +119,28 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
     dev = h0.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = torch.empty((c, n, n, 8), dtype=torch.float32, device=dev)
+        rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
+        tw = fft_plan.twiddles(n, dev)
+        scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
+                              dtype=torch.float32, device=dev)
         lead = (c, num_frames) if multi else (c,)
         disp = torch.empty(lead + (3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty(lead + (4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
         for k in range(num_frames):
             rc = lib.fused_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                     scalars.data_ptr(), scratch.data_ptr(), c, n, k, stream)
+                                     scalars.data_ptr(), tw.data_ptr(), scratch.data_ptr(), c, n,
+                                     k, rows.lines, rows.pitch, stream)
             if rc:
                 raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
             LAUNCHES += 1
             foam_in = foam if k == 0 else foam_out   # in place from frame 1 on
             d_k, n_k = (disp[:, k], normal[:, k]) if multi else (disp, normal)
             rc = lib.fused_step_cols(
-                scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(),
+                scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
                 d_k.data_ptr(), n_k.data_ptr(), foam_out.data_ptr(), c, n,
-                DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), stream)
+                DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), cols.lines, cols.pitch,
+                cols.join_pitch, stream)
             if rc:
                 raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
             LAUNCHES += 1

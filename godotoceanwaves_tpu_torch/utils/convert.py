@@ -5,7 +5,9 @@ Both packages then compute from identical inputs:
     leaves = {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
     params = params_from_numpy(leaves, device="cpu")
 
-A multipatch `CascadeParams` (P, C) crosses the same way; a sharded JAX state
+`params_from_numpy`, `state_from_numpy` and `maps_from_numpy` default to the
+card, like the port's other entry points, and raise when none is present:
+pass `device="cpu"` to stay on the CPU. A multipatch `CascadeParams` (P, C) crosses the same way; a sharded JAX state
 crosses gathered to global NumPy arrays and is cut again over the port's
 mesh (`sharded_state_from_numpy`).
 """
@@ -17,7 +19,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..models.cascade import CascadeParams
+from ..models.cascade import CascadeParams, require_device
 from ..models.ocean import OceanMaps, OceanState
 from ..parallel.sharding import Mesh, Sharded, shard_state
 
@@ -30,17 +32,18 @@ def _tensors(cls, leaves: Mapping[str, np.ndarray], device) -> dict:
     missing = set(names) - set(leaves)
     if missing:
         raise ValueError(f"{cls.__name__} leaves missing: {sorted(missing)}")
+    device = require_device(device)
     return {name: torch.from_numpy(np.array(leaves[name])).to(device) for name in names}
 
 
 def params_from_numpy(leaves: Mapping[str, np.ndarray],
-                      device: torch.device | str = "cpu") -> CascadeParams:
+                      device: torch.device | str = "cuda") -> CascadeParams:
     """`CascadeParams` from a {field: ndarray} dict (float32 fields, int32 seed)."""
     return CascadeParams(**_tensors(CascadeParams, leaves, device))
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray],
-                     device: torch.device | str = "cpu") -> OceanState:
+                     device: torch.device | str = "cuda") -> OceanState:
     """`OceanState` from a {field: ndarray} dict (h0, h0nc, omega, foam, time)."""
     return OceanState(**_tensors(OceanState, leaves, device))
 
@@ -48,8 +51,9 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray],
 def sharded_state_from_numpy(leaves: Mapping[str, np.ndarray], mesh: Mesh) -> Sharded:
     """A `Sharded` OceanState on `mesh` from the global {field: ndarray} of a
     multipatch state (h0/h0nc (P, C, 2, N, N), omega/foam (P, C, N, N),
-    time (P, C))."""
-    return shard_state(mesh, state_from_numpy(leaves))
+    time (P, C)). The global state is staged on the CPU and cut from there
+    onto the mesh's devices."""
+    return shard_state(mesh, state_from_numpy(leaves, device="cpu"))
 
 
 def state_to_numpy(state: OceanState) -> dict[str, np.ndarray]:
@@ -60,7 +64,7 @@ def state_to_numpy(state: OceanState) -> dict[str, np.ndarray]:
 
 def maps_from_numpy(displacement: np.ndarray, normal: np.ndarray,
                     dtype: str | torch.dtype | None = None,
-                    device: torch.device | str = "cpu") -> OceanMaps:
+                    device: torch.device | str = "cuda") -> OceanMaps:
     """`OceanMaps` from the JAX package's maps as NumPy arrays.
 
     displacement (C, 3, N, N) and normal (C, 4, N, N), channel-first. Arrays
@@ -69,6 +73,7 @@ def maps_from_numpy(displacement: np.ndarray, normal: np.ndarray,
     torch dtype; None keeps the arrays' own) rounds them back here, which
     restores the original values exactly.
     """
+    device = require_device(device)
     if isinstance(dtype, str):
         dtype = _TORCH_DTYPES[dtype]
 

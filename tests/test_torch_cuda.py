@@ -81,12 +81,54 @@ def test_multi_step_kernel_matches_plain(card, dtype):
                      (want[0][:, k], want[1][:, k], want[2]), two_byte=dtype != "float32")
 
 
-@pytest.mark.parametrize("n", [16, 64, 256, 1024])
-def test_step_kernel_matches_plain_across_sizes(card, n):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [1 << b for b in range(4, 11)])
+def test_step_kernel_matches_plain_across_sizes(card, n, dtype):
+    """K1 at every N = 16..1024 and map dtype: fp32 maps <= 1e-4 relative
+    RMS; 2-byte maps <= 1e-3 (displacement) and <= 2e-3 (normal, RMS); foam
+    <= 1e-4 RMS."""
     args = inputs(n, card, multi=False)
-    got = fused_step.fused_cascade_step(*args, map_dtype=torch.float32)
-    want = fused_step.fused_cascade_step_reference(*args, map_dtype=torch.float32)
-    assert_close(got, want, two_byte=False)
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_cascade_step(*args, map_dtype=DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 2
+    want = fused_step.fused_cascade_step_reference(*args, map_dtype=DTYPES[dtype])
+    assert got[0].dtype == DTYPES[dtype] and got[0].shape == (3, 3, n, n)
+    assert_close(got, want, two_byte=dtype != "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_step_kernel_at_1024_carries_foam_in_place(card, dtype):
+    """Three frames at 1024^2, foam read and written in place from frame 1
+    on: every frame and the final foam within the tolerances above."""
+    args = inputs(1024, card, multi=True)
+    got = fused_step.fused_cascade_multi_step(*args, num_frames=3, map_dtype=DTYPES[dtype])
+    want = fused_step.fused_cascade_multi_step_reference(*args, num_frames=3,
+                                                         map_dtype=DTYPES[dtype])
+    for k in range(3):
+        assert_close((got[0][:, k], got[1][:, k], got[2]),
+                     (want[0][:, k], want[1][:, k], want[2]), two_byte=dtype != "float32")
+
+
+def test_step_kernel_makes_no_host_sync(card):
+    """Two K1 frames at 1024^2 (bf16 maps), plans and twiddle table
+    included, under set_sync_debug_mode("error"): no host sync, 2 launches a
+    frame, and the tolerances above against the plain version."""
+    args = inputs(1024, card, multi=True)
+    torch.cuda.synchronize()
+    before = fused_step.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fused_step.fused_cascade_multi_step(*args, num_frames=2, map_dtype=torch.bfloat16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 2 * 2
+    want = fused_step.fused_cascade_multi_step_reference(*args, num_frames=2,
+                                                         map_dtype=torch.bfloat16)
+    for k in range(2):
+        assert_close((got[0][:, k], got[1][:, k], got[2]),
+                     (want[0][:, k], want[1][:, k], want[2]), two_byte=True)
 
 
 @pytest.mark.parametrize("n", [8, 2048])

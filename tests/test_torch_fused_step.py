@@ -88,7 +88,8 @@ def _scalars(params, leaves, multi: bool):
     jscal = pallas_step.pack_scalars(jnp.asarray(t), params.tile_length, params.whitecap,
                                      grow, decay, dt=DT if multi else None)
     tp = convert.params_from_numpy(
-        {f.name: np.asarray(getattr(params, f.name)) for f in dataclasses.fields(params)})
+        {f.name: np.asarray(getattr(params, f.name)) for f in dataclasses.fields(params)},
+        device="cpu")
     tgrow, tdecay = _foam_rates(tp, torch.tensor(DT))
     tscal = fused_step.pack_scalars(torch.from_numpy(t), tp.tile_length, tp.whitecap,
                                     tgrow, tdecay, dt=torch.tensor(DT) if multi else None)

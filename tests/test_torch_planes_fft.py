@@ -58,8 +58,8 @@ def test_staged_session_matches_jax_staged_step(interpret):
     jcfg = J.SimConfig(map_size=n, fused="never", fft_impl="pallas", map_dtype="float32")
     js = J.init_state(jcfg, jp)
     tcfg = T.SimConfig(map_size=n, fused="never", map_dtype="float32")
-    tp = convert.params_from_numpy(leaves(jp))
-    ts = convert.state_from_numpy(leaves(js))
+    tp = convert.params_from_numpy(leaves(jp), device="cpu")
+    ts = convert.state_from_numpy(leaves(js), device="cpu")
     assert tcfg.step_tier() == "staged" and planes_fft.covers(n)
     for _ in range(2):
         js, jm = jocean.step_impl(jcfg, js, jp, 0.05)

@@ -64,7 +64,7 @@ def scene():
     scales = o.params.map_scales()
     tmaps = convert.maps_from_numpy(np.asarray(maps.displacement, np.float32),
                                     np.asarray(maps.normal, np.float32),
-                                    dtype=str(maps.displacement.dtype))
+                                    dtype=str(maps.displacement.dtype), device="cpu")
     return maps, scales, tmaps, torch.from_numpy(np.array(scales))
 
 
@@ -92,7 +92,7 @@ def _sky(pkg, kw):
                            near(jg._pool3(sky, jnp.maximum)))
         return np.asarray(sky)
     d = tg.camera_rays(w, h, CAM["pitch_deg"], CAM["yaw_deg"], 70.0, row_offset=off,
-                       row_count=cnt)
+                       row_count=cnt, device="cpu")
     light = torch.tensor(LIGHT)
     light = light / ts._norm(light)
     sky = ts.sky_color(d, light)
@@ -200,11 +200,12 @@ def test_map_scales_and_maps_from_numpy():
     disp = jnp.asarray(rng.normal(size=(2, 3, 8, 8)), jnp.bfloat16)
     normal = jnp.asarray(rng.normal(size=(2, 4, 8, 8)), jnp.bfloat16)
     maps = convert.maps_from_numpy(np.asarray(disp, np.float32), np.asarray(normal, np.float32),
-                                   dtype="bfloat16")
+                                   dtype="bfloat16", device="cpu")
     assert maps.displacement.dtype == torch.bfloat16 and maps.normal.shape == (2, 4, 8, 8)
     np.testing.assert_array_equal(maps.displacement.float().numpy(),
                                   np.asarray(disp, np.float32))
-    kept = convert.maps_from_numpy(np.asarray(disp, np.float32), np.asarray(normal, np.float32))
+    kept = convert.maps_from_numpy(np.asarray(disp, np.float32), np.asarray(normal, np.float32),
+                                   device="cpu")
     assert kept.displacement.dtype == torch.float32
 
 
@@ -212,7 +213,7 @@ def test_map_scales_and_maps_from_numpy():
 def test_camera_rays_match_jax(rows):
     off, cnt = rows or (0, None)
     want = jg.camera_rays(W, H, -7.0, 33.0, 65.0, row_offset=off, row_count=cnt)
-    got = tg.camera_rays(W, H, -7.0, 33.0, 65.0, row_offset=off, row_count=cnt)
+    got = tg.camera_rays(W, H, -7.0, 33.0, 65.0, row_offset=off, row_count=cnt, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
 
 
@@ -231,7 +232,7 @@ def test_debug_stage_prefix_consistency(scene):
     assert set(hitf.unique().tolist()) <= {0.0, 1.0}
     hit = hitf > 0.5
     assert hit.any() and (~hit).any()
-    d = tg.camera_rays(64, 32, CAM["pitch_deg"], CAM["yaw_deg"], 70.0)
+    d = tg.camera_rays(64, 32, CAM["pitch_deg"], CAM["yaw_deg"], 70.0, device="cpu")
     cam = torch.tensor(CAM["camera_pos"])
     p = cam + t_safe[..., None] * d
     light = torch.tensor(LIGHT)

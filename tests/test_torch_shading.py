@@ -127,7 +127,8 @@ def test_flat_render_matches_jax():
               environment=True)
     jfn = jax.jit(functools.partial(js.render_ocean, **kw))
     want = np.asarray(jfn(JMaps(jnp.asarray(disp), jnp.asarray(normal)), jnp.asarray(scales)))
-    got = ts.render_ocean(convert.maps_from_numpy(disp, normal), torch.from_numpy(scales),
+    got = ts.render_ocean(convert.maps_from_numpy(disp, normal, device="cpu"),
+                          torch.from_numpy(scales),
                           **kw).numpy()
     assert got.shape == (27, 48, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -145,7 +145,7 @@ def jax_and_port(rows, patches, n=N, cascades=3, **cfg):
     jmesh = jsh.build_mesh(jax.devices()[:count], rows=rows)
     jcfg = J.SimConfig(map_size=n, **cfg)
     tcfg = T.SimConfig(map_size=n, **{k: v for k, v in cfg.items() if k != "fft_impl"})
-    return (jcfg, jp, jmesh), (tcfg, convert.params_from_numpy(leaves(jp)),
+    return (jcfg, jp, jmesh), (tcfg, convert.params_from_numpy(leaves(jp), device="cpu"),
                                cpu_mesh(rows, count))
 
 

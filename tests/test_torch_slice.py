@@ -53,8 +53,8 @@ def pair(n, **cfg):
     jcfg = J.SimConfig(map_size=n, **cfg)
     jstate = J.init_state(jcfg, jp)
     tcfg = T.SimConfig(map_size=n, **{k: v for k, v in cfg.items() if k != "fft_impl"})
-    return (jcfg, jp, jstate), (tcfg, convert.params_from_numpy(leaves(jp)),
-                                convert.state_from_numpy(leaves(jstate)))
+    return (jcfg, jp, jstate), (tcfg, convert.params_from_numpy(leaves(jp), device="cpu"),
+                                convert.state_from_numpy(leaves(jstate), device="cpu"))
 
 
 @pytest.mark.parametrize("stagger", [False, True])
@@ -64,7 +64,7 @@ def test_ocean_session_matches_jax(stagger):
     that dirties cascade 1 (dirty-only regeneration) mid-run."""
     n = 64
     jo = J.Ocean(map_size=n, updates_per_second=30.0, stagger=stagger)
-    to = T.Ocean(params=convert.params_from_numpy(leaves(jo.params)), map_size=n,
+    to = T.Ocean(params=convert.params_from_numpy(leaves(jo.params), device="cpu"), map_size=n,
                  updates_per_second=30.0, stagger=stagger, device="cpu")
     deltas = [0.02, 0.05, 0.01, 0.04, 0.03, 0.02]
     for i, delta in enumerate(deltas):
@@ -111,6 +111,36 @@ def test_params_default_to_the_card(make):
     with pytest.raises(RuntimeError, match="CUDA"):
         fn()
     assert fn(device="cpu").wind_speed.device.type == "cpu"
+
+
+def _carry(name):
+    """(function, positional arguments, a tensor of its result) of the
+    conversion and ray functions, on the JAX package's own values."""
+    if name == "camera_rays":
+        from godotoceanwaves_tpu_torch.models import geometry
+        return geometry.camera_rays, (8, 4, -7.0, 33.0, 65.0), lambda out: out
+    if name == "maps_from_numpy":
+        d, nm = np.zeros((1, 3, 4, 4), np.float32), np.zeros((1, 4, 4, 4), np.float32)
+        return convert.maps_from_numpy, (d, nm), lambda out: out.normal
+    jp = J.models.default_cascades()
+    if name == "params_from_numpy":
+        return convert.params_from_numpy, (leaves(jp),), lambda out: out.wind_speed
+    state = J.init_state(J.SimConfig(map_size=16), jp)
+    return convert.state_from_numpy, (leaves(state),), lambda out: out.foam
+
+
+@pytest.mark.parametrize("name", ["params_from_numpy", "state_from_numpy", "maps_from_numpy",
+                                  "camera_rays"])
+def test_conversions_default_to_the_card(name):
+    """The functions that carry the JAX package's parameters, state and maps
+    across, and the camera rays, default to device="cuda" and raise without
+    a card; device="cpu" is explicit."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fn, args, tensor = _carry(name)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(*args)
+    assert tensor(fn(*args, device="cpu")).device.type == "cpu"
 
 
 @pytest.fixture

@@ -88,7 +88,7 @@ def test_preview_tier_matches_jax():
     of it on the port's own maps (which agree with JAX's to ~1e-7)."""
     jo = J.Ocean(params=jax_dual_wind_swell(), map_size=N, updates_per_second=0)
     leaves = {f.name: np.asarray(getattr(jo.params, f.name)) for f in dataclasses.fields(jo.params)}
-    to = T.Ocean(params=convert.params_from_numpy(leaves), map_size=N, updates_per_second=0,
+    to = T.Ocean(params=convert.params_from_numpy(leaves, device="cpu"), map_size=N, updates_per_second=0,
                  device="cpu")
     jm, tm = jo.update(0.05), to.update(0.05)
     j_prev = jax.tree.map(lambda x: x[..., ::2, ::2].astype(jnp.bfloat16), jm)

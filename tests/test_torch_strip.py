@@ -85,8 +85,8 @@ def test_strip_step_matches_jax_strip_kernel(interpret, dtype):
     want = pallas_strip.strip_cascade_step(state.h0, state.h0nc, state.omega, state.foam,
                                            j_scal, map_dtype=jax_dtype)
 
-    ts = convert.state_from_numpy(leaves(state))
-    tp = convert.params_from_numpy(leaves(jp))
+    ts = convert.state_from_numpy(leaves(state), device="cpu")
+    tp = convert.params_from_numpy(leaves(jp), device="cpu")
     grow, decay = _foam_rates(tp, float(DT))
     t_scal = fused_step.pack_scalars(ts.time + float(DT), tp.tile_length, tp.whitecap,
                                      grow, decay)
@@ -119,7 +119,7 @@ def test_config5_session_matches_jax():
     n = 2048
     jo = J.Ocean(params=jax_dual_wind_swell(), map_size=n, map_dtype="bfloat16",
                  updates_per_second=0)
-    to = T.Ocean(params=convert.params_from_numpy(leaves(jo.params)), map_size=n,
+    to = T.Ocean(params=convert.params_from_numpy(leaves(jo.params), device="cpu"), map_size=n,
                  map_dtype="bfloat16", updates_per_second=0, device="cpu")
     assert to.config.step_tier() == "strip"
     for delta in (0.02, 0.02, 0.03):
