@@ -453,7 +453,7 @@ def time_step_passes(torch, fs, args, dev, card: str) -> dict:
     foam_out = torch.empty_like(foam)
     row_pass = lambda: lib.fused_step_rows(
         h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(), scal.data_ptr(), tw.data_ptr(),
-        scratch.data_ptr(), c, n, 0, rows.lines, rows.pitch, stream)
+        scratch.data_ptr(), c, n, 0, rows.lines, rows.pitch, rows.join_pitch, stream)
     col_pass = lambda: lib.fused_step_cols(
         scratch.data_ptr(), foam.data_ptr(), scal.data_ptr(), tw.data_ptr(), disp.data_ptr(),
         normal.data_ptr(), foam_out.data_ptr(), c, n, 1, disp.stride(0), normal.stride(0),

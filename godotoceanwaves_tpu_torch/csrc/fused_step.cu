@@ -11,11 +11,12 @@
 // back on the caller's stream:
 //
 //   rows: block (R rows, cascade c), 4 sequences a row, sequence s = layer
-//         s / R of row s mod R. Prologue: thread t modulates texels
-//         x = t + m N/16 of its row (phase = omega * t in fp32, accurate
-//         sincosf) and keeps its layer; the 4 threads of a texel each
-//         evaluate it, and 3 of them find h0, h0nc and omega in L1. Then the
-//         transform along x, and element (y, k) of layer l goes to record
+//         s / R of row s mod R. Prologue: each texel of the block is
+//         modulated once (phase = omega * t in fp32, accurate sincosf), 4
+//         consecutive texels a warp-step, and its 4 layers go through
+//         shared memory to the threads of their sequences (thread t holds
+//         x = t + m N/16). Then the transform along x, and element (y, k)
+//         of layer l goes to record
 //         (k / 8, y, k mod 8) of plane (c, l) of the scratch
 //         (C, 4, 2, N/8, N, 8) fp32: a warp stores whole 32-byte sectors.
 //   cols: block (C columns, cascade c), 4 sequences a column. Stage 0 loads
@@ -64,44 +65,57 @@ using texel::S_WHITECAP;
 constexpr int kStepMaxLog2N = 10;   // N <= 1024; larger maps are the strip step's (K4)
 constexpr int kTile = 8;             // columns a scratch record holds (32 bytes)
 
-// Layer l of a texel's 4, without indexing a register array by a variable.
-__device__ __forceinline__ float2 pick(const float2 (&v)[kLayers], int l) {
-    return l == 0 ? v[0] : l == 1 ? v[1] : l == 2 ? v[2] : v[3];
-}
-
 template <int LOG2N>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
                  const float* __restrict__ omega, const float* __restrict__ scal,
                  const float2* __restrict__ tw, float* __restrict__ scratch, int rows,
-                 int pitch, int frame) {
+                 int pitch, int jpitch, int frame) {
     using Sh = Shape<LOG2N>;
     constexpr int kN = 1 << LOG2N;
     constexpr size_t kPlane = static_cast<size_t>(1) << (2 * LOG2N);
     extern __shared__ float smem[];
     const int seqs = rows * kLayers;
-    const int s = threadIdx.x >> Sh::kLog2T;
-    const int t = threadIdx.x & (Sh::kT - 1);
-    const int layer = s / rows;
-    const int y = blockIdx.x * rows + (s - layer * rows);
+    const int y0 = blockIdx.x * rows;
     const int c = blockIdx.y;
     const float* sc = scal + c * NUM_SCALARS;
     // frame k modulates at S_TIME + k * S_DT, rounded as two fp32 ops
     const float time = __fadd_rn(sc[S_TIME], __fmul_rn(static_cast<float>(frame), sc[S_DT]));
-    const texel::Row r = texel::row_at(h0, h0nc, omega, sc, c, y, kN, time);
 
+    // Prologue: the block's rows x N texels, 4 a thread, each modulated
+    // once; layer l of texel (y0 + r, x) goes to word x of sequence
+    // l rows + r in the buffer that the exchanges use later.
+    float* jre = smem;
+    float* jim = smem + seqs * jpitch;
+#pragma unroll
+    for (int j = 0; j < kPoints / kLayers; ++j) {
+        const int q = threadIdx.x + j * blockDim.x;
+        const int r = q >> LOG2N;
+        const int x = q & (kN - 1);
+        const texel::Row row = texel::row_at(h0, h0nc, omega, sc, c, y0 + r, kN, time);
+        float2 lay[kLayers];
+        texel::modulate(row, x, lay);
+#pragma unroll
+        for (int l = 0; l < kLayers; ++l) {
+            jre[(l * rows + r) * jpitch + x] = lay[l].x;
+            jim[(l * rows + r) * jpitch + x] = lay[l].y;
+        }
+    }
+    __syncthreads();
+    const int s = threadIdx.x >> Sh::kLog2T;
+    const int t = threadIdx.x & (Sh::kT - 1);
     float2 v[kPoints];
 #pragma unroll
-    for (int m = 0; m < kPoints; ++m) {
-        float2 lay[kLayers];
-        texel::modulate(r, t + m * Sh::kT, lay);
-        v[m] = pick(lay, layer);
-    }
+    for (int m = 0; m < kPoints; ++m)
+        v[m] = make_float2(jre[s * jpitch + t + m * Sh::kT], jim[s * jpitch + t + m * Sh::kT]);
+    __syncthreads();   // the exchanges reuse the buffer
     float* re = smem + s * pitch;
     float* im = re + seqs * pitch;
     transform<LOG2N>(v, t, re, im, t, re, im, tw);
 
     // element (y, k) -> record (k / 8, y, k mod 8) of plane (c, layer), Re and Im
+    const int layer = s / rows;
+    const int y = y0 + (s - layer * rows);
     float* out = scratch + (static_cast<size_t>(c) * kLayers + layer) * 2 * kPlane
                  + static_cast<size_t>(y) * kTile;
 #pragma unroll
@@ -205,14 +219,14 @@ template <int LOG2N>
 struct RowsLaunch {
     static int run(const float* h0, const float* h0nc, const float* omega, const float* scal,
                    const float2* tw, float* scratch, int c, int frame, int rows, int pitch,
-                   long long smem, cudaStream_t stream) {
+                   int jpitch, long long smem, cudaStream_t stream) {
         if constexpr (LOG2N > kStepMaxLog2N) {
             return static_cast<int>(cudaErrorInvalidValue);
         } else {
             if (int rc = allow_smem(step_rows_kernel<LOG2N>, smem)) return rc;
             step_rows_kernel<LOG2N><<<dim3((1 << LOG2N) / rows, c),
                                       (rows * kLayers) << Shape<LOG2N>::kLog2T, smem, stream>>>(
-                h0, h0nc, omega, scal, tw, scratch, rows, pitch, frame);
+                h0, h0nc, omega, scal, tw, scratch, rows, pitch, jpitch, frame);
             return static_cast<int>(cudaGetLastError());
         }
     }
@@ -249,16 +263,18 @@ extern "C" {
 // Row pass for frame `frame` of C cascades at N x N: h0/h0nc (C, 2, N, N),
 // omega (C, N, N) and the scalar rows in, the scratch records
 // (C, 4, 2, N/8, N, 8) out. tw is the (N / 2) float2 table
-// e^{+2 pi i j / N}; rows (a power of two dividing N) and pitch are the
-// launch plan (ops/fft_plan.py step_rows_plan). Returns a cudaError_t.
+// e^{+2 pi i j / N}; rows (a power of two dividing N), pitch and jpitch
+// (>= N) are the launch plan (ops/fft_plan.py step_rows_plan). Returns a
+// cudaError_t.
 int fused_step_rows(const float* h0, const float* h0nc, const float* omega, const float* scal,
                     const float* tw, float* scratch, int c, int n, int frame, int rows,
-                    int pitch, void* stream) {
+                    int pitch, int jpitch, void* stream) {
     const int log2n = log2_exact(n);
-    const long long smem = step_smem(log2n, rows, pitch, 0, n);
-    if (c < 1 || c > 65535 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const long long smem = step_smem(log2n, rows, pitch, jpitch, n);
+    if (c < 1 || c > 65535 || smem < 0 || jpitch < n)
+        return static_cast<int>(cudaErrorInvalidValue);
     return dispatch<RowsLaunch>(log2n, h0, h0nc, omega, scal, reinterpret_cast<const float2*>(tw),
-                                scratch, c, frame, rows, pitch, smem,
+                                scratch, c, frame, rows, pitch, jpitch, smem,
                                 static_cast<cudaStream_t>(stream));
 }
 

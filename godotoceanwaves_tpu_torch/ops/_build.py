@@ -31,8 +31,9 @@ SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # fused_step_rows(h0, h0nc, omega, scal, tw, scratch, c, n, frame, rows, pitch, stream)
-    "fused_step_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # fused_step_rows(h0, h0nc, omega, scal, tw, scratch, c, n, frame, rows, pitch, jpitch,
+    #                 stream)
+    "fused_step_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # fused_step_cols(scratch, foam_in, scal, tw, disp, normal, foam_out, c, n,
     #                 dtype, disp_cstride, norm_cstride, cols, pitch, jpitch, stream)
     "fused_step_cols": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P),

@@ -14,8 +14,10 @@ two accesses a bank at most below, where a warp spans several sequences).
 plans, with the addresses the kernel computes, and holds them to that.
 
 The fused step's plans (`step_rows_plan`, `step_cols_plan`) hold 4 layer
-sequences for each row or column of a block, and its column pass a join
-buffer through which the 4 layers of an output texel meet (`join_pitch`).
+sequences for each row or column of a block, and a join buffer
+(`join_pitch`) in the exchange buffer's place: through it the row pass
+hands each modulated texel's 4 layers to their sequences, and the column
+pass brings the 4 layers of each output texel together.
 
 The kernels take the plan as arguments and refuse one that does not fit
 them. Nothing here touches the card except `twiddles`, which builds the
@@ -144,28 +146,35 @@ def _check_step(n: int) -> None:
                          f"got {n}")
 
 
+def _join_pitch(n: int) -> int:
+    """Words between two sequences in the fused step's join buffer, which
+    holds a sequence's N points: N + N / 16 below 32 threads a sequence, so
+    that the sequences of a warp start on different banks."""
+    t = n // POINTS
+    return n + (t if t < 32 else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def step_rows_plan(n: int, threads: int = STEP_ROWS_THREADS) -> Plan:
     """The fused row pass: rows a block, each as 4 layer sequences,
-    `threads` / (4 N / 16) rows, at least one, at most N."""
+    `threads` / (4 N / 16) rows, at least one, at most N. The join buffer
+    carries the modulated layers to the threads of their sequences."""
     _check_step(n)
     lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
     seqs = LAYERS * lines
-    return Plan(n, seqs, _pitch(n, seqs, False), layers=LAYERS)
+    return Plan(n, seqs, _pitch(n, seqs, False), layers=LAYERS, join_pitch=_join_pitch(n))
 
 
 @functools.lru_cache(maxsize=None)
 def step_cols_plan(n: int, threads: int = STEP_COLS_THREADS) -> Plan:
     """The fused column pass: columns a block, each as 4 layer sequences,
-    `threads` / (4 N / 16) columns, at least one, at most N. Its join buffer
-    holds each sequence's N outputs, N + N / 16 words apart below 32 threads
-    a sequence so that a warp's sequences start on different banks."""
+    `threads` / (4 N / 16) columns, at least one, at most N. The join buffer
+    brings the 4 layers of each output texel together for the unpack."""
     _check_step(n)
-    t = n // POINTS
-    lines = min(n, max(1, threads // (LAYERS * t)))
+    lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
     seqs = LAYERS * lines
     return Plan(n, seqs, _pitch(n, seqs, True), column_major=True, layers=LAYERS,
-                join_pitch=n + (t if t < 32 else 0))
+                join_pitch=_join_pitch(n))
 
 
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}

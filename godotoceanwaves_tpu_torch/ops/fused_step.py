@@ -130,7 +130,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
         for k in range(num_frames):
             rc = lib.fused_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
                                      scalars.data_ptr(), tw.data_ptr(), scratch.data_ptr(), c, n,
-                                     k, rows.lines, rows.pitch, stream)
+                                     k, rows.lines, rows.pitch, rows.join_pitch, stream)
             if rc:
                 raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
             LAUNCHES += 1

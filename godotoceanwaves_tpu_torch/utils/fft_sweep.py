@@ -1,5 +1,6 @@
 """Launch-plan sweep of the Stockham FFT kernels (K3 `csrc/rows_fft.cu`, K2
-`csrc/rows_fft.cu` + `csrc/planes_fft.cu`) on one CUDA card.
+`csrc/rows_fft.cu` + `csrc/planes_fft.cu`, K1 `csrc/fused_step.cu`) on one
+CUDA card.
 
     python -m godotoceanwaves_tpu_torch.utils.fft_sweep
 
@@ -12,9 +13,11 @@ shapes: K3 at the config-5 shard (16, 2, 1024, 2048), K2 at 16 x 1024^2 and
 8 x 2048^2 (also with other record widths, and over 1, 2 or 4 planes at a
 time), beside `torch.fft.ifft` / `torch.fft.ifft2` on the same planes, a
 `copy_` of the same planes (the bytes without the arithmetic) and the bytes
-bound (16 bytes an element over 3.35 TB/s). Prints the card's name and
-power limit and one JSON line of the times. Exits non-zero without a card
-or when a check fails.
+bound (16 bytes an element over 3.35 TB/s); K1's row pass and column pass
+at config 4 (4 x 1024^2, bf16 maps) under a few plans, each plan's maps
+equal to the default plan's. Prints the card's name and power limit and
+one JSON line of the times. Exits non-zero without a card or when a check
+fails.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import sys
 
 import torch
 
-from ..ops import _build, fft, fft_plan, planes_fft, rows_fft
+from ..ops import _build, fft, fft_plan, fused_step, planes_fft, rows_fft
 from .timing import time_cuda
 
 HBM_TBPS = 3.35
@@ -136,6 +139,61 @@ def sweep(lib, dev) -> dict:
     return out
 
 
+def sweep_step(lib, dev) -> dict:
+    """K1's two passes at config 4 (bench.py's 4 cascades at 1024^2, bf16
+    maps) under plans of 256 and 512 threads a block (1 or 2 rows or
+    columns at 1024)."""
+    from ..models import default_cascades, init_state, SimConfig
+    from ..models.ocean import _foam_rates
+    n = 1024
+    base = default_cascades(device=dev)
+    params = base.map(lambda x: torch.cat([x, x[:1]]))
+    st = init_state(SimConfig(map_size=n), params)
+    grow, decay = _foam_rates(params, 0.02)
+    scal = fused_step.pack_scalars(st.time + 0.02, params.tile_length, params.whitecap, grow,
+                                   decay)
+    c = params.num_cascades
+    want = fused_step.fused_cascade_step(st.h0, st.h0nc, st.omega, st.foam, scal)
+    tw = fft_plan.twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
+                          device=dev)
+    disp, normal = torch.empty_like(want[0]), torch.empty_like(want[1])
+    foam = torch.empty_like(st.foam)
+
+    def rows(plan):
+        return lambda: lib.fused_step_rows(
+            st.h0.data_ptr(), st.h0nc.data_ptr(), st.omega.data_ptr(), scal.data_ptr(),
+            tw.data_ptr(), scratch.data_ptr(), c, n, 0, plan.lines, plan.pitch, plan.join_pitch,
+            stream)
+
+    def cols(plan):
+        return lambda: lib.fused_step_cols(
+            scratch.data_ptr(), st.foam.data_ptr(), scal.data_ptr(), tw.data_ptr(),
+            disp.data_ptr(), normal.data_ptr(), foam.data_ptr(), c, n, 1, disp.stride(0),
+            normal.stride(0), plan.lines, plan.pitch, plan.join_pitch, stream)
+
+    out = {"rows_ms_by_threads": {}, "cols_ms_by_threads": {}}
+    for t in (256, 512):
+        plan = fft_plan.step_rows_plan(n, t)
+        if rows(plan)() or cols(fft_plan.step_cols_plan(n))():
+            raise SystemExit(f"FAIL: K1 with a {t}-thread row plan did not launch")
+        if not all(torch.equal(a, b) for a, b in zip((disp, normal, foam), want)):
+            raise SystemExit(f"FAIL: K1 with a {t}-thread row plan differs from the default")
+        out["rows_ms_by_threads"][t] = time_cuda(rows(plan), iters=50)
+    for t in (256, 512):
+        plan = fft_plan.step_cols_plan(n, t)
+        if cols(plan)():
+            raise SystemExit(f"FAIL: K1 with a {t}-thread column plan did not launch")
+        if not all(torch.equal(a, b) for a, b in zip((disp, normal, foam), want)):
+            raise SystemExit(f"FAIL: K1 with a {t}-thread column plan differs from the default")
+        out["cols_ms_by_threads"][t] = time_cuda(cols(plan), iters=50)
+    out["pair_ms"] = time_cuda(lambda: fused_step.fused_cascade_step(
+        st.h0, st.h0nc, st.omega, st.foam, scal), iters=50)
+    print(f"K1 {c} x {n}^2 bf16: {out}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("fft_sweep: no CUDA device available", file=sys.stderr)
@@ -145,12 +203,13 @@ def main() -> int:
     keep = False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = "rows_fft" in line or "planes_cols" in line
+            keep = any(k in line for k in ("rows_fft", "planes_cols", "step_rows", "step_cols"))
         if keep and any(k in line for k in ("entry function", "registers", "spill")):
             print("ptxas:", line.strip())
     lib = _build.load()
     errs = check_all(dev)
     times = sweep(lib, dev)
+    times["K1 4 x 1024^2 bf16"] = sweep_step(lib, dev)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()

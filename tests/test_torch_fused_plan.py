@@ -1,11 +1,13 @@
 """The fused step's kernel pair (K1, `csrc/fused_step.cu`) run in NumPy on
 the CPU, through its global layouts, from `ops/fft_plan.py`'s step plans.
 
-The row pass: thread t of sequence s (layer s / R of row s mod R of the
-block) modulates texels x = t + m N/16 of its row and keeps its layer;
-the Stockham stages run as `run_block` runs them (the kernels' exchange
-addresses, an exact table); element (y, k) of layer l goes to record
-(k / 8, y, k mod 8) of plane (c, l). The column pass: stage 0 loads with
+The row pass: thread i of a block modulates texels i + j B (B threads a
+block, j < 4) of its R rows and writes layer l of texel (r, x) to word x of
+sequence s = l R + r of the join buffer; after a barrier thread t of
+sequence s loads its points t + m N/16 from there. The Stockham stages run
+as `run_block` runs them (the kernels' exchange addresses, an exact table);
+element (y, k) of layer l goes to record (k / 8, y, k mod 8) of plane
+(c, l). The column pass: stage 0 loads with
 the sequence (layer l, column x) fastest across the warp from those
 records; after the transform thread (s, t) writes its 16 outputs to the join
 buffer at s * join_pitch + t + m N/16, and then unpacks the outputs
@@ -88,9 +90,10 @@ def unpack(lay, kx, m, foam_prev, sc):
 
 
 class Trace:
-    """What the model saw: each warp access of the join, as word addresses in
-    thread order, each global store's element addresses, and the foam texel
-    that each thread reads and then writes (foam_in may alias foam_out)."""
+    """What the model saw: each warp access of the join buffers (both
+    passes), as word addresses in thread order, each global store's element
+    addresses, and the foam texel that each thread reads and then writes
+    (foam_in may alias foam_out)."""
 
     def __init__(self):
         self.join, self.scratch_stores, self.map_stores, self.foam = [], [], [], []
@@ -101,19 +104,32 @@ def row_pass(n, h0, h0nc, omega, scal, frame, table, trace, blocks=None):
     (plane (c, l) at (c L + l) N^2, records (N / 8, N, 8)). `blocks` runs
     only the first blocks of each cascade."""
     plan = plans(n)["rows"]
-    lines, tps = plan.lines, plan.threads_per_seq
+    lines, tps, jp = plan.lines, plan.threads_per_seq, plan.join_pitch
     scratch = np.full(h0.shape[0] * L * n * n, np.nan + 0j)
     seq, t = thread_map(plan, 1)
+    i = np.arange(plan.threads)
     for c in range(h0.shape[0]):
         lay = modulate(h0[c], h0nc[c], omega[c], scal[c, 0], frame, n)
         for y0 in range(0, n, lines)[:blocks]:
-            layer, y = seq // lines, y0 + seq % lines
-            # thread (s, t) modulates texel t + m T of row y, keeps `layer`
+            # thread i modulates texels i + j B of the block's rows once and
+            # writes each layer to its sequence's row of the join buffer
+            words = np.full(plan.seqs * jp, np.nan + 0j)
+            for j in range(fft_plan.POINTS // L):
+                r, x = (i + j * plan.threads) // n, (i + j * plan.threads) % n
+                for q in range(L):
+                    addr = (q * lines + r) * jp + x
+                    assert np.isnan(words[addr]).all(), "two layers share a join word"
+                    words[addr] = lay[q, y0 + r, x]
+                    trace.join.append(addr)
+            # thread (s, t) loads its points t + m T of sequence s
             block = np.empty((plan.seqs, n), complex)
             for m in range(fft_plan.POINTS):
-                x = t + m * tps
-                block[seq, x] = lay[layer, y, x]
+                addr = seq * jp + t + m * tps
+                block[seq, t + m * tps] = words[addr]
+                trace.join.append(addr)
+            assert not np.isnan(block).any(), "a sequence loaded a word never written"
             out = run_block(plan, block, table)
+            layer, y = seq // lines, y0 + seq % lines
             for m in range(fft_plan.POINTS):
                 k = t + m * tps
                 addr = (c * L + layer) * n * n + ((k // W) * n + y) * W + k % W
@@ -221,29 +237,30 @@ def test_step_plans_fit_the_card(n):
     within its registers (64 a thread) and shared memory; the pitch holds
     the padded extent, the join buffer a whole sequence, and the lines
     divide N."""
-    for kind, plan in plans(n).items():
+    for plan in plans(n).values():
         assert plan.n == n and plan.layers == L and plan.seqs == L * plan.lines
         assert plan.threads <= fft_plan.MAX_THREADS and n % plan.lines == 0
         assert plan.smem_bytes <= fft_plan.SMEM_LIMIT and 2 * plan.smem_bytes <= SM_SMEM
         assert 2 * plan.threads * REGISTERS <= SM_REGISTERS
         assert plan.pitch >= fft_plan.extent(n)
-        assert plan.join_pitch >= (n if kind == "cols" else 0)
+        assert plan.join_pitch >= n
     assert plans(n)["cols"].column_major and not plans(n)["rows"].column_major
 
 
 @pytest.mark.parametrize("n", STEP_SIZES)
 def test_step_exchanges_and_join_spread_over_the_banks(n):
-    """No exchange or join access conflicts on a bank from N = 512 up; below,
-    where a warp spans sequences, at most two words a bank (8 column-pass
-    sequences at N = 1024 included)."""
+    """No exchange or join access (both passes) conflicts on a bank from
+    N = 512 up; below, where a warp spans sequences, at most two words a
+    bank (8 column-pass sequences at N = 1024 included)."""
     limit = 1 if n >= 512 else 2
     for plan in plans(n).values():
         exchanges = []
         run_block(plan, np.ones((plan.seqs, n), complex), exact_table(n), exchanges)
         assert max((wavefronts(a) for a in exchanges), default=1) <= limit
     trace = Trace()
-    col_pass(n, np.zeros(L * n * n, complex), np.zeros((1, n, n)), inputs(16, cascades=1)[4],
-             exact_table(n), trace, blocks=2)
+    h0, h0nc, omega, foam, scal = inputs(n, cascades=1)
+    row_pass(n, h0, h0nc, omega, scal, 0, exact_table(n), trace, blocks=2)
+    col_pass(n, np.zeros(L * n * n, complex), foam, scal, exact_table(n), trace, blocks=2)
     assert max(wavefronts(a) for a in trace.join) <= limit
 
 
