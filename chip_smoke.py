@@ -446,8 +446,7 @@ def time_step_passes(torch, fs, args, dev, card: str) -> dict:
     rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
     tw = fft_plan.twiddles(n, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
     disp = torch.empty((c, 3, n, n), dtype=torch.bfloat16, device=dev)
     normal = torch.empty((c, 4, n, n), dtype=torch.bfloat16, device=dev)
     foam_out = torch.empty_like(foam)

@@ -7,41 +7,45 @@
 // column pass. Both passes run on the register-resident Stockham core
 // (stockham.cuh): a sequence of N points is held by N/16 threads, 16 points
 // a thread, radix-16 stages in registers, conflict-free exchanges, twiddles
-// from the wrapper's table (ops/fft_plan.py). Two kernels, launched back to
-// back on the caller's stream:
+// from the wrapper's table (ops/fft_plan.py, which also chooses the launch
+// plans). Two kernels, launched back to back on the caller's stream:
 //
-//   rows: block (R rows, cascade c), 4 sequences a row, sequence s = layer
-//         s / R of row s mod R. Prologue: each texel of the block is
+//   rows: block (R rows, cascade c), 4 sequences a row: sequence s is layer
+//         s mod 4 of row s / 4. Prologue: each texel of the block's rows is
 //         modulated once (phase = omega * t in fp32, accurate sincosf), 4
-//         consecutive texels a warp-step, and its 4 layers go through
-//         shared memory to the threads of their sequences (thread t holds
-//         x = t + m N/16). Then the transform along x, and element (y, k)
-//         of layer l goes to record
-//         (k / 8, y, k mod 8) of plane (c, l) of the scratch
-//         (C, 4, 2, N/8, N, 8) fp32: a warp stores whole 32-byte sectors.
+//         texels a thread, and its 4 layers go through shared memory to the
+//         threads of their sequences (thread t holds x = t + m N/16). After
+//         the transform along x, a join through shared memory: each thread
+//         gathers half-records, so that the 4 layers of texel (y, k) leave
+//         as one 32-byte record of the scratch (C, N, N, 8) fp32 and a warp
+//         stores 512 contiguous bytes.
 //   cols: block (C columns, cascade c), 4 sequences a column. Stage 0 loads
-//         with the sequence fastest across the warp (consecutive columns of
-//         a record; the blocks of the neighbouring columns read the rest of
-//         its sectors from L2) and the later stages run t fastest. The
-//         transform along y of column kx is OUTPUT ROW kx (the reference's
-//         rows -> transpose -> rows chain with no second transpose). The
-//         join: each thread writes its layer's 16 outputs to shared memory
-//         (reusing the exchange buffer), and after a barrier unpacks a
-//         quarter of its column's outputs, m = t + (layer + 4 j) N/16, from
-//         all 4 layers: consecutive lanes hold consecutive m, so the map and
-//         foam accesses stay contiguous. Epilogue: (-1)^(kx+m) ifftshift
-//         (once, in texel::unpack), displacement, normal from fp32 gradients
-//         (rounded once), fp32 foam recurrence.
+//         with the sequence fastest across the warp, so the 4 lanes of a
+//         column read each record whole; the later stages run t fastest.
+//         The transform along y of column kx is OUTPUT ROW kx (the
+//         reference's rows -> transpose -> rows chain with no second
+//         transpose). The join: each thread writes its layer's 16 outputs
+//         to shared memory (reusing the exchange buffer), and after a
+//         barrier unpacks a quarter of its column's outputs,
+//         m = t + (layer + 4 j) N/16, from all 4 layers: consecutive lanes
+//         hold consecutive m, so the map and foam accesses stay contiguous.
+//         Epilogue: (-1)^(kx+m) ifftshift (once, in texel::unpack),
+//         displacement, normal from fp32 gradients (rounded once), fp32
+//         foam recurrence. The thread that reads foam_in[m] writes
+//         foam_out[m], so the two may alias.
 //
 // Bound: device memory bandwidth. Per cascade-frame at 1024^2: 20 MB of
 // spectra + omega in, 4 MB of foam in and 4 out, 14 MB of bf16 maps out
 // (~44 MB, 0.013 ms at 3.35 TB/s), plus 32 MB of scratch written and read
 // back, which the two-pass form pays so that no block holds a whole layer.
-// What kept the first version (a radix-2 shared-memory core) at ~4x its
-// bound was the work between loads and stores: 10 passes through shared
-// memory with two barriers each, bank conflicts at small strides, 512
-// sincospif a block for its twiddles, and one column a column-pass block.
-// The Stockham core leaves 1-2 exchanges and reads a float64-built table.
+// What keeps a shared-memory FFT from that bound is the work between its
+// loads and its stores: passes through shared memory with their barriers
+// and bank conflicts, and twiddles computed per block. The Stockham core
+// needs 1-2 conflict-free exchanges and reads a float64-built table. What
+// remains is the modulation (one sincosf, a square root and four divisions
+// a texel) and the joins' barriers and shared-memory round trips, which a
+// block runs between its loads and its stores; at 64 registers a thread an
+// SM holds 1024 threads of either pass to hide them.
 //
 // Accuracy: no fast math. omega * t reaches ~6.7e3 rad at 1024^2 (t ~ 126 s),
 // so sincosf keeps its full range reduction.
@@ -63,7 +67,6 @@ using texel::S_GROW;
 using texel::S_TIME;
 using texel::S_WHITECAP;
 constexpr int kStepMaxLog2N = 10;   // N <= 1024; larger maps are the strip step's (K4)
-constexpr int kTile = 8;             // columns a scratch record holds (32 bytes)
 
 template <int LOG2N>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
@@ -73,7 +76,6 @@ step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
                  int pitch, int jpitch, int frame) {
     using Sh = Shape<LOG2N>;
     constexpr int kN = 1 << LOG2N;
-    constexpr size_t kPlane = static_cast<size_t>(1) << (2 * LOG2N);
     extern __shared__ float smem[];
     const int seqs = rows * kLayers;
     const int y0 = blockIdx.x * rows;
@@ -84,7 +86,7 @@ step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
 
     // Prologue: the block's rows x N texels, 4 a thread, each modulated
     // once; layer l of texel (y0 + r, x) goes to word x of sequence
-    // l rows + r in the buffer that the exchanges use later.
+    // 4 r + l in the buffer that the exchanges use later.
     float* jre = smem;
     float* jim = smem + seqs * jpitch;
 #pragma unroll
@@ -97,8 +99,8 @@ step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
         texel::modulate(row, x, lay);
 #pragma unroll
         for (int l = 0; l < kLayers; ++l) {
-            jre[(l * rows + r) * jpitch + x] = lay[l].x;
-            jim[(l * rows + r) * jpitch + x] = lay[l].y;
+            jre[(r * kLayers + l) * jpitch + x] = lay[l].x;
+            jim[(r * kLayers + l) * jpitch + x] = lay[l].y;
         }
     }
     __syncthreads();
@@ -113,17 +115,25 @@ step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
     float* im = re + seqs * pitch;
     transform<LOG2N>(v, t, re, im, t, re, im, tw);
 
-    // element (y, k) -> record (k / 8, y, k mod 8) of plane (c, layer), Re and Im
-    const int layer = s / rows;
-    const int y = y0 + (s - layer * rows);
-    float* out = scratch + (static_cast<size_t>(c) * kLayers + layer) * 2 * kPlane
-                 + static_cast<size_t>(y) * kTile;
+    // The join: the sequences' outputs back to the buffer, then each half
+    // of a texel record (layers 2h and 2h + 1 of texel (y0 + r, k), 16
+    // bytes) is one thread's, so that a warp stores 512 contiguous bytes.
+    __syncthreads();   // every thread has read the last exchange
 #pragma unroll
     for (int m = 0; m < kPoints; ++m) {
-        const int k = t + m * Sh::kT;
-        const size_t o = (static_cast<size_t>(k / kTile) << LOG2N) * kTile + (k & (kTile - 1));
-        out[o] = v[m].x;
-        out[o + kPlane] = v[m].y;
+        jre[s * jpitch + t + m * Sh::kT] = v[m].x;
+        jim[s * jpitch + t + m * Sh::kT] = v[m].y;
+    }
+    __syncthreads();
+    float4* out = reinterpret_cast<float4*>(scratch)
+                  + ((static_cast<size_t>(c) << LOG2N) + y0) * (2 << LOG2N);
+#pragma unroll
+    for (int u = 0; u < 2 * kPoints / kLayers; ++u) {
+        const int slot = threadIdx.x + u * blockDim.x;
+        const int q = slot >> 1;
+        const int w0 = ((q >> LOG2N) * kLayers + (slot & 1) * 2) * jpitch + (q & (kN - 1));
+        const int w1 = w0 + jpitch;
+        out[slot] = make_float4(jre[w0], jim[w0], jre[w1], jim[w1]);
     }
 }
 
@@ -140,7 +150,7 @@ step_cols_kernel(const float* __restrict__ scratch,
     const int seqs = cols * kLayers;
     const int x0 = blockIdx.x * cols;
     const int c = blockIdx.y;
-    // stage 0: sequence (layer s / cols, column s mod cols) fastest across the warp
+    // stage 0: sequence (column s / 4, layer s mod 4) fastest across the warp
     const int s0 = threadIdx.x % seqs;
     const int t0 = threadIdx.x / seqs;
     // later stages, the join and the epilogue: t fastest
@@ -149,15 +159,14 @@ step_cols_kernel(const float* __restrict__ scratch,
 
     float2 v[kPoints];
     {
-        const int layer = s0 / cols;
-        const int x = x0 + (s0 - layer * cols);
-        const float* run = scratch + (static_cast<size_t>(c) * kLayers + layer) * 2 * kPlane
-                           + (static_cast<size_t>(x / kTile) << LOG2N) * kTile + (x & (kTile - 1));
+        // layer `layer` of texel (y, x): word pair `layer` of record (c, y, x)
+        const int layer = s0 % kLayers;
+        const int x = x0 + s0 / kLayers;
+        const float2* run = reinterpret_cast<const float2*>(scratch)
+                            + ((static_cast<size_t>(c) << (2 * LOG2N)) + x) * kLayers + layer;
 #pragma unroll
-        for (int m = 0; m < kPoints; ++m) {
-            const size_t at = static_cast<size_t>(t0 + m * Sh::kT) * kTile;
-            v[m] = make_float2(run[at], run[at + kPlane]);
-        }
+        for (int m = 0; m < kPoints; ++m)
+            v[m] = run[static_cast<size_t>(t0 + m * Sh::kT) << (LOG2N + 2)];
     }
     float* re0 = smem + s0 * pitch;
     float* re1 = smem + s1 * pitch;
@@ -174,8 +183,8 @@ step_cols_kernel(const float* __restrict__ scratch,
     }
     __syncthreads();
 
-    const int layer = s1 / cols;
-    const int col = s1 - layer * cols;
+    const int layer = s1 % kLayers;
+    const int col = s1 / kLayers;
     const int kx = x0 + col;   // output row
     const float* sc = scal + c * NUM_SCALARS;
     const float whitecap = sc[S_WHITECAP];
@@ -192,7 +201,7 @@ step_cols_kernel(const float* __restrict__ scratch,
         float2 l[kLayers];
 #pragma unroll
         for (int q = 0; q < kLayers; ++q) {
-            const int w = (q * cols + col) * jpitch + m;
+            const int w = (col * kLayers + q) * jpitch + m;
             l[q] = make_float2(jre[w], jim[w]);
         }
         // the thread that reads fi[m] writes fo[m]: in place is safe
@@ -261,8 +270,8 @@ struct ColsFor {
 extern "C" {
 
 // Row pass for frame `frame` of C cascades at N x N: h0/h0nc (C, 2, N, N),
-// omega (C, N, N) and the scalar rows in, the scratch records
-// (C, 4, 2, N/8, N, 8) out. tw is the (N / 2) float2 table
+// omega (C, N, N) and the scalar rows in, the scratch of texel records
+// (C, N, N, 8) out. tw is the (N / 2) float2 table
 // e^{+2 pi i j / N}; rows (a power of two dividing N), pitch and jpitch
 // (>= N) are the launch plan (ops/fft_plan.py step_rows_plan). Returns a
 // cudaError_t.

@@ -40,8 +40,7 @@ ROWS_THREADS = 128     # threads a row-pass block aims at
 COLS_THREADS = 256     # threads a column-pass block aims at
 LAYERS = 4             # packed layers of the fused step (texel::kLayers)
 STEP_MAX_N = 1024      # the fused step's largest N
-STEP_ROWS_THREADS = 256   # threads a fused row-pass block aims at
-STEP_COLS_THREADS = 512   # threads a fused column-pass block aims at
+STEP_THREADS = 256     # threads a fused-step block aims at, either pass
 
 
 def log2(n: int) -> int:
@@ -83,7 +82,7 @@ class Plan:
     seqs: int      # sequences a block: layers x lines (rows or columns)
     pitch: int     # words between two sequences in the exchange buffer
     column_major: bool = False   # stage 0 maps consecutive threads to consecutive sequences
-    layers: int = 1     # sequences of one line; sequence s is layer s / lines of line s mod lines
+    layers: int = 1     # sequences of one line; sequence s is layer s mod layers of line s / layers
     join_pitch: int = 0   # words between two sequences in the join buffer (0: no join)
 
     @property
@@ -148,33 +147,36 @@ def _check_step(n: int) -> None:
 
 def _join_pitch(n: int) -> int:
     """Words between two sequences in the fused step's join buffer, which
-    holds a sequence's N points: N + N / 16 below 32 threads a sequence, so
-    that the sequences of a warp start on different banks."""
+    holds a sequence's N points: N + N / 16 below 32 threads a sequence (a
+    warp's sequences start on different banks), else N + 8, so that the
+    row pass's lanes that gather layers 0-1 and 2-3 of 16 texels fall 16
+    banks apart."""
     t = n // POINTS
-    return n + (t if t < 32 else 0)
+    return n + (t if t < 32 else 8)
 
 
-@functools.lru_cache(maxsize=None)
-def step_rows_plan(n: int, threads: int = STEP_ROWS_THREADS) -> Plan:
-    """The fused row pass: rows a block, each as 4 layer sequences,
-    `threads` / (4 N / 16) rows, at least one, at most N. The join buffer
-    carries the modulated layers to the threads of their sequences."""
+def _step_plan(n: int, threads: int, column_major: bool) -> Plan:
     _check_step(n)
     lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
     seqs = LAYERS * lines
-    return Plan(n, seqs, _pitch(n, seqs, False), layers=LAYERS, join_pitch=_join_pitch(n))
+    return Plan(n, seqs, _pitch(n, seqs, column_major), column_major, LAYERS, _join_pitch(n))
 
 
 @functools.lru_cache(maxsize=None)
-def step_cols_plan(n: int, threads: int = STEP_COLS_THREADS) -> Plan:
+def step_rows_plan(n: int, threads: int = STEP_THREADS) -> Plan:
+    """The fused row pass: rows a block, each as 4 layer sequences,
+    `threads` / (4 N / 16) rows, at least one, at most N. The join buffer
+    carries the modulated layers to the threads of their sequences and the
+    transformed ones back to the texel records."""
+    return _step_plan(n, threads, False)
+
+
+@functools.lru_cache(maxsize=None)
+def step_cols_plan(n: int, threads: int = STEP_THREADS) -> Plan:
     """The fused column pass: columns a block, each as 4 layer sequences,
     `threads` / (4 N / 16) columns, at least one, at most N. The join buffer
     brings the 4 layers of each output texel together for the unpack."""
-    _check_step(n)
-    lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
-    seqs = LAYERS * lines
-    return Plan(n, seqs, _pitch(n, seqs, True), column_major=True, layers=LAYERS,
-                join_pitch=_join_pitch(n))
+    return _step_plan(n, threads, True)
 
 
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}

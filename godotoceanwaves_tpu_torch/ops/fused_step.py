@@ -11,8 +11,8 @@ they run the plain PyTorch version built from `modulate`, `fft` and
 
 The pair is bound by device memory bandwidth: about 44 MB per cascade-frame
 at 1024^2 (spectra, omega and foam in; foam and bf16 maps out), plus a
-32 MB fp32 scratch written and read back, (C, 4, 2, N/8, N, 8): each layer's
-Re and Im planes as 32-byte records of 8 columns. It pays that round trip in
+32 MB fp32 scratch written and read back, (C, N, N, 8): the 4 transformed
+layers of a texel as one 32-byte record. It pays that round trip in
 exchange for never holding a whole layer on chip.
 
 What the TPU kernel needed and this one does not: the VMEM-resident
@@ -121,8 +121,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
         stream = torch.cuda.current_stream(dev).cuda_stream
         rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
         tw = fft_plan.twiddles(n, dev)
-        scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
-                              dtype=torch.float32, device=dev)
+        scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
         lead = (c, num_frames) if multi else (c,)
         disp = torch.empty(lead + (3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty(lead + (4, n, n), dtype=map_dtype, device=dev)

@@ -156,8 +156,7 @@ def sweep_step(lib, dev) -> dict:
     want = fused_step.fused_cascade_step(st.h0, st.h0nc, st.omega, st.foam, scal)
     tw = fft_plan.twiddles(n, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = torch.empty((c, fft_plan.LAYERS, 2, n // fft_plan.TILE, n, fft_plan.TILE),
-                          device=dev)
+    scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), device=dev)
     disp, normal = torch.empty_like(want[0]), torch.empty_like(want[1])
     foam = torch.empty_like(st.foam)
 

@@ -3,12 +3,13 @@ the CPU, through its global layouts, from `ops/fft_plan.py`'s step plans.
 
 The row pass: thread i of a block modulates texels i + j B (B threads a
 block, j < 4) of its R rows and writes layer l of texel (r, x) to word x of
-sequence s = l R + r of the join buffer; after a barrier thread t of
+sequence s = 4 r + l of the join buffer; after a barrier thread t of
 sequence s loads its points t + m N/16 from there. The Stockham stages run
-as `run_block` runs them (the kernels' exchange addresses, an exact table);
-element (y, k) of layer l goes to record (k / 8, y, k mod 8) of plane
-(c, l). The column pass: stage 0 loads with
-the sequence (layer l, column x) fastest across the warp from those
+as `run_block` runs them (the kernels' exchange addresses, an exact table).
+Then the outputs go back to the join buffer, and each thread gathers 16
+bytes of a texel record (layers 2h and 2h + 1) a store into the scratch of
+32-byte texel records (C, N, N, 8). The column pass: stage 0 loads with
+the sequence (column x, layer l) fastest across the warp from those
 records; after the transform thread (s, t) writes its 16 outputs to the join
 buffer at s * join_pitch + t + m N/16, and then unpacks the outputs
 m = t + (l + 4 j) N/16, j < 4, reading the 4 layers of each from the join
@@ -27,7 +28,7 @@ from test_torch_fft_plan import (REGISTERS, SM_REGISTERS, SM_SMEM, exact_table, 
                                  thread_map, wavefronts)
 
 STEP_SIZES = [1 << b for b in range(4, 11)]     # every N the fused kernels take
-L, W = fft_plan.LAYERS, fft_plan.TILE
+L = fft_plan.LAYERS
 TWO_PI = float(np.float32(2.0 * np.pi))          # the fp32 2 pi both versions divide
 
 
@@ -91,33 +92,37 @@ def unpack(lay, kx, m, foam_prev, sc):
 
 class Trace:
     """What the model saw: each warp access of the join buffers (both
-    passes), as word addresses in thread order, each global store's element
-    addresses, and the foam texel that each thread reads and then writes
+    passes), as word addresses in thread order; each global access of the
+    scratch and the maps, as (threads, words) element addresses in thread
+    order; and the foam texel that each thread reads and then writes
     (foam_in may alias foam_out)."""
 
     def __init__(self):
-        self.join, self.scratch_stores, self.map_stores, self.foam = [], [], [], []
+        self.join, self.scratch_stores, self.scratch_loads = [], [], []
+        self.map_stores, self.foam = [], []
 
 
 def row_pass(n, h0, h0nc, omega, scal, frame, table, trace, blocks=None):
-    """The row pass of every cascade: the scratch as a flat complex array
-    (plane (c, l) at (c L + l) N^2, records (N / 8, N, 8)). `blocks` runs
-    only the first blocks of each cascade."""
+    """The row pass of every cascade: the scratch as a flat complex array,
+    layer l of texel (c, y, k) at 4 ((c N + y) N + k) + l (the fp32 record
+    (C, N, N, 8) holds its Re and Im at twice that and one more). `blocks`
+    runs only the first blocks of each cascade."""
     plan = plans(n)["rows"]
     lines, tps, jp = plan.lines, plan.threads_per_seq, plan.join_pitch
-    scratch = np.full(h0.shape[0] * L * n * n, np.nan + 0j)
+    scratch = np.full(h0.shape[0] * n * n * L, np.nan + 0j)
     seq, t = thread_map(plan, 1)
     i = np.arange(plan.threads)
     for c in range(h0.shape[0]):
         lay = modulate(h0[c], h0nc[c], omega[c], scal[c, 0], frame, n)
         for y0 in range(0, n, lines)[:blocks]:
             # thread i modulates texels i + j B of the block's rows once and
-            # writes each layer to its sequence's row of the join buffer
+            # writes layer l of texel (r, x) to sequence 4 r + l of the join
+            # buffer
             words = np.full(plan.seqs * jp, np.nan + 0j)
             for j in range(fft_plan.POINTS // L):
                 r, x = (i + j * plan.threads) // n, (i + j * plan.threads) % n
                 for q in range(L):
-                    addr = (q * lines + r) * jp + x
+                    addr = (r * L + q) * jp + x
                     assert np.isnan(words[addr]).all(), "two layers share a join word"
                     words[addr] = lay[q, y0 + r, x]
                     trace.join.append(addr)
@@ -129,13 +134,26 @@ def row_pass(n, h0, h0nc, omega, scal, frame, table, trace, blocks=None):
                 trace.join.append(addr)
             assert not np.isnan(block).any(), "a sequence loaded a word never written"
             out = run_block(plan, block, table)
-            layer, y = seq // lines, y0 + seq % lines
+            # the join: thread (s, t) writes its outputs t + m T back ...
+            words = np.full(plan.seqs * jp, np.nan + 0j)
             for m in range(fft_plan.POINTS):
-                k = t + m * tps
-                addr = (c * L + layer) * n * n + ((k // W) * n + y) * W + k % W
-                assert np.isnan(scratch[addr]).all(), "two stores share a scratch word"
-                scratch[addr] = out[seq, k]
-                trace.scratch_stores.append(addr)
+                addr = seq * jp + t + m * tps
+                words[addr] = out[seq, t + m * tps]
+                trace.join.append(addr)
+            # ... and stores 16 bytes of a record a slot: slot i + u B holds
+            # layers 2h and 2h + 1 of the block's texel slot / 2, h = slot mod 2
+            first = (c * n + y0) * n
+            for u in range(2 * fft_plan.POINTS // L):
+                slot = i + u * plan.threads
+                q, h = slot // 2, slot % 2
+                w0 = ((q // n) * L + 2 * h) * jp + q % n
+                trace.join.extend([w0, w0 + jp])
+                for e, w in enumerate((w0, w0 + jp)):
+                    a = (first + q) * L + 2 * h + e
+                    assert np.isnan(scratch[a]).all(), "two stores share a scratch word"
+                    scratch[a] = words[w]
+                    assert not np.isnan(scratch[a]).any(), "a record got a word never written"
+                trace.scratch_stores.append(4 * (2 * first + slot)[:, None] + np.arange(4))
     assert blocks or not np.isnan(scratch).any(), "a scratch word was never stored"
     return scratch
 
@@ -153,12 +171,14 @@ def col_pass(n, scratch, foam_in, scal, table, trace, blocks=None):
     s1, t1 = thread_map(plan, 1)
     for c in range(cascades):
         for x0 in range(0, n, lines)[:blocks]:
-            # stage 0: sequence (layer s / C, column x0 + s mod C) fastest
-            layer, x = s0 // lines, x0 + s0 % lines
+            # stage 0: sequence (column x0 + s / 4, layer s mod 4) fastest
+            layer, x = s0 % L, x0 + s0 // L
             block = np.empty((seqs, n), complex)
             for m in range(fft_plan.POINTS):
                 y = t0 + m * tps
-                block[s0, y] = scratch[(c * L + layer) * n * n + ((x // W) * n + y) * W + x % W]
+                rec = (c * n + y) * n + x
+                block[s0, y] = scratch[rec * L + layer]
+                trace.scratch_loads.append((8 * rec + 2 * layer)[:, None] + np.arange(2))
             out = run_block(plan, block, table)
             # the join: thread (s, t) writes its outputs t + m T
             words = np.full(seqs * jp, np.nan + 0j)
@@ -168,18 +188,18 @@ def col_pass(n, scratch, foam_in, scal, table, trace, blocks=None):
                 words[addr] = out[s1, t1 + m * tps]
                 trace.join.append(addr)
             # ... and unpacks outputs t + (layer + 4 j) T of its column
-            layer, col = s1 // lines, s1 % lines
+            layer, col = s1 % L, s1 // L
             kx = x0 + col
             for j in range(fft_plan.POINTS // L):
                 m = t1 + (layer + L * j) * tps
-                reads = [(l2 * lines + col) * jp + m for l2 in range(L)]
+                reads = [(col * L + q) * jp + m for q in range(L)]
                 trace.join.extend(reads)
                 lay = np.stack([words[a] for a in reads])
                 assert not np.isnan(lay).any(), "the join read a word never written"
                 d, nm, f = unpack(lay, kx, m, foam_in[c, kx, m], scal[c, 0])
                 assert np.isnan(foam[c, kx, m]).all(), "two threads unpack one texel"
                 disp[c][:, kx, m], normal[c][:, kx, m], foam[c, kx, m] = d, nm, f
-                trace.map_stores.append(kx * n + m)
+                trace.map_stores.append((kx * n + m)[:, None])
                 trace.foam.append((c * n + kx) * n + m)
     assert blocks or not np.isnan(foam).any(), "a texel was never unpacked"
     return disp, normal, foam
@@ -264,17 +284,28 @@ def test_step_exchanges_and_join_spread_over_the_banks(n):
     assert max(wavefronts(a) for a in trace.join) <= limit
 
 
-@pytest.mark.parametrize("n", [128, 256, 512, 1024])
-def test_row_pass_stores_whole_sectors(n):
-    """Each warp's record stores (4-byte words, Re and Im planes alike)
-    cover whole 32-byte sectors."""
+def whole_sectors(accesses, size):
+    """Whether each warp access ((threads, elements) addresses of `size`
+    bytes, in thread order) covers only whole 32-byte sectors."""
+    per = 32 // size
+    for access in accesses:
+        for warp in np.array_split(access, max(1, len(access) // 32)):
+            elems = np.unique(warp)
+            if len(np.unique(elems // per)) * per != len(elems):
+                return False
+    return True
+
+
+@pytest.mark.parametrize("n", STEP_SIZES)
+def test_scratch_moves_whole_sectors(n):
+    """The row pass's record stores (16 bytes a lane) and the column pass's
+    record loads (8 bytes a lane, the 4 layers of a column in adjacent
+    lanes) cover whole 32-byte sectors in each warp."""
     trace = Trace()
-    table = exact_table(n)
-    h0, h0nc, omega, _, scal = inputs(n, cascades=1)
-    row_pass(n, h0, h0nc, omega, scal, 0, table, trace, blocks=2)
-    for words in trace.scratch_stores:
-        for warp in np.array_split(words, len(words) // 32):
-            assert len(np.unique(warp // 8)) * 8 == len(np.unique(warp))
+    h0, h0nc, omega, foam, scal = inputs(n, cascades=1)
+    scratch = row_pass(n, h0, h0nc, omega, scal, 0, exact_table(n), trace, blocks=2)
+    col_pass(n, np.nan_to_num(scratch), foam, scal, exact_table(n), trace, blocks=2)
+    assert whole_sectors(trace.scratch_stores, 4) and whole_sectors(trace.scratch_loads, 4)
 
 
 @pytest.mark.parametrize("n", [256, 512, 1024])
@@ -285,10 +316,7 @@ def test_column_pass_map_stores_whole_sectors(n, size):
     trace = Trace()
     col_pass(n, np.zeros(L * n * n, complex), np.zeros((1, n, n)), inputs(16, cascades=1)[4],
              exact_table(n), trace, blocks=2)
-    per = 32 // size
-    for elems in trace.map_stores:
-        for warp in np.array_split(elems, len(elems) // 32):
-            assert len(np.unique(warp // per)) * per == len(np.unique(warp))
+    assert whole_sectors(trace.map_stores, size)
 
 
 def test_step_plans_refuse_sizes_outside_the_kernel():
