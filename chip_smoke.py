@@ -434,7 +434,7 @@ def turns(time_cuda, plain, kernel, iters=20):
     return min(t[1], t[2]), min(t[0], t[3]), t
 
 
-def time_step_passes(torch, fs, args, dev, card: str) -> dict:
+def time_step_passes(torch, args, dev, card: str) -> dict:
     """K1's row pass and column pass alone at config 4, on buffers of the
     wrapper's shapes, through the library calls; K2 at 16 x 1024^2 beside
     the pair, in turns (pair, K2, K2, pair)."""
@@ -511,7 +511,7 @@ def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
         f"plain {plain_ms:.4f}, step() {step_ms:.4f}; turns {[round(x, 4) for x in t]}; "
         f"Ocean.update() host clock over 100 calls {update_ms:.4f}; bound {bnd[0]:.4f} "
         f"({bnd[1]}); card {card}")
-    passes = time_step_passes(torch, fs, args, dev, card)
+    passes = time_step_passes(torch, args, dev, card)
     moved = nbytes(*args, *fs.fused_cascade_step(*args, map_dtype=torch.bfloat16))
     through = moved + passes["scratch_bytes"]
     log(f"[5] K1 pair {ms:.4f} ms: {moved / ms / 1e9:.3f} TB/s of the function's "
