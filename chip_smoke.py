@@ -8,7 +8,9 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 
 1. Toolchain: CUDA version, nvcc, card name and power limit; builds
    `godotoceanwaves_tpu_torch/csrc/*.cu` with nvcc (one process per source,
-   in parallel) and prints the build time and ptxas lines.
+   in parallel) and prints the build time, the ptxas lines, and the
+   registers, stack and spills of each instantiation of the step passes
+   (K1's lengths and K4's splits).
 2. The fused-step kernel pair (K1) against its plain PyTorch version,
    single frame and K=3 frames, at N = 128 and 1024, 3 cascades, seeded
    foam; one fp32 step at each other power of two from 16 to 512.
@@ -32,10 +34,14 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 8. Config 5: `Ocean.update` x 48 at 2 cascades x 2048^2 with bf16 maps (K4),
    the same run with fused="never" (K2), compared; then `MapStreamer`'s
    full-resolution, native-dtype and preview legs.
-9. Timing with CUDA events: K4 vs plain ms/frame at config 5, with its row
-   and column passes alone; the staged step (fused="never", K2) at config 5;
-   K2 vs torch.fft at 16 x 1024^2 and 8 x 2048^2 (TB/s, share of the
-   bound, ratio to torch.fft.ifft2).
+9. Timing with CUDA events: K4 vs plain ms/frame at config 5; its row and
+   column passes alone through the library calls, the pair's TB/s over the
+   bytes it moves (its function's and the scratch's round trip) and its
+   share of the bound, and K2 at 8 x 2048^2 (the same planes) timed in the
+   same phase as the yardstick; K4 at 4096^2 and 8192^2 with 1 cascade
+   (the split) and each pass alone; the staged step (fused="never", K2) at
+   config 5; K2 vs torch.fft at 16 x 1024^2 and 8 x 2048^2 (TB/s, share of
+   the bound, ratio to torch.fft.ifft2).
 10. The LOD gradient-tap kernel (K5) against its plain version (the einsum
     taps): a random case (3 cascades at 1024^2, 4 levels, 16 bands whose
     levels hold 0, the bicubic-blending coarse level and the skip value)
@@ -261,8 +267,37 @@ def phase_toolchain(torch, build) -> str:
     for line in nvcc_log.splitlines():
         if any(key in line for key in ("entry function", "registers", "spill")):
             log(f"[1] ptxas: {line.strip()}")
+    for name, (regs, stack, spills) in step_pass_registers(nvcc_log).items():
+        log(f"[1] {name}: {regs} registers, {spills} bytes spilled, {stack} bytes stack")
     build.load()
     return card
+
+
+def step_pass_registers(nvcc_log: str) -> dict:
+    """ptxas's figures for each instantiation of the step passes
+    (`csrc/step_passes.cuh`): {"K4 step_rows_kernel<11, 2>": (registers,
+    stack bytes, spill store + load bytes)}; K1 runs lengths 2^4..2^10,
+    K4 2^11."""
+    import re
+    dtypes = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    out, name, stack, spills = {}, None, 0, 0
+    for line in nvcc_log.splitlines():
+        entry = re.search(r"Compiling entry function '\S*(step_(?:rows|cols)_kernel)ILi(\d+)ELi"
+                          r"(\d+)E(f|13__nv_bfloat16|6__half)?E", line)
+        if entry:
+            kernel, log2m, split, dtype = entry.groups()
+            args = [log2m, split] + ([dtypes[dtype]] if dtype else [])
+            name = f"{'K4' if int(log2m) > 10 else 'K1'} {kernel}<{', '.join(args)}>"
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", line)
+        if frame and name:
+            stack, spills = int(frame.group(1)), int(frame.group(2)) + int(frame.group(3))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out[name] = (int(used.group(1)), stack, spills)
+            name = None
+    return out
 
 
 def seeded_inputs(torch, T, n: int, dev, params=None):
@@ -434,12 +469,41 @@ def turns(time_cuda, plain, kernel, iters=20):
     return min(t[1], t[2]), min(t[0], t[3]), t
 
 
-def time_step_passes(torch, args, dev, card: str) -> dict:
-    """K1's row pass and column pass alone at config 4, on buffers of the
-    wrapper's shapes, through the library calls; K2 at 16 x 1024^2 beside
-    the pair, in turns (pair, K2, K2, pair)."""
-    from godotoceanwaves_tpu_torch.ops import _build, fft_plan, planes_fft
+def time_passes(torch, tag: str, row_pass, col_pass, texels: int, planes, card: str) -> dict:
+    """A step pair's row pass and column pass alone, through the library
+    calls on buffers of the wrapper's shapes (bf16 maps), then the pair
+    beside K2 over the same planes (`planes`, (4 C, 2, N, N)) in turns
+    (pair, K2, K2, pair)."""
+    from godotoceanwaves_tpu_torch.ops import planes_fft
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    check(row_pass() == 0 and col_pass() == 0, f"a {tag} pass failed to launch")
+    rows_ms = time_cuda(row_pass, iters=50)
+    cols_ms = time_cuda(col_pass, iters=50)
+    rows_bytes = texels * (8 + 8 + 4 + 32)          # h0, h0nc, omega in; scratch out
+    cols_bytes = texels * (32 + 4 + 4 + 7 * 2)      # scratch, foam in; foam, bf16 maps out
+    pair = lambda: (row_pass(), col_pass())
+    k2 = lambda: planes_fft.ifft2_packed_planes(planes, fold_sign=True)
+    t = [time_cuda(f, iters=50) for f in (pair, k2, k2, pair)]
+    pair_ms, k2_ms = min(t[0], t[3]), min(t[1], t[2])
+    log(f"{tag} passes alone (CUDA events, best of 3 x 50): row pass {rows_ms:.4f} ms "
+        f"({rows_bytes / rows_ms / 1e9:.3f} TB/s of {rows_bytes / 1e6:.1f} MB), column pass "
+        f"{cols_ms:.4f} ms ({cols_bytes / cols_ms / 1e9:.3f} TB/s of {cols_bytes / 1e6:.1f} MB); "
+        f"pair by the library calls {pair_ms:.4f} ms, K2 at {planes.shape[0]} x "
+        f"{planes.shape[-1]}^2 {k2_ms:.4f} ms (turns {[round(v, 4) for v in t]}); card {card}")
+    return {"rows_ms": rows_ms, "cols_ms": cols_ms, "pair_ms": pair_ms, "k2_ms": k2_ms,
+            "scratch_bytes": 2 * texels * 8 * 4}
+
+
+def layer_planes(torch, c: int, n: int, dev):
+    """K2's yardstick input: the 4 C planes of N^2 a step pair transforms."""
+    return torch.randn((4 * c, 2, n, n), generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev)
+
+
+def time_step_passes(torch, args, dev, card: str) -> dict:
+    """K1's row pass and column pass alone at config 4, and the pair beside
+    K2 at 16 x 1024^2."""
+    from godotoceanwaves_tpu_torch.ops import _build, fft_plan
     h0, h0nc, omega, foam, scal = args
     lib = _build.load()
     c, n = h0.shape[0], h0.shape[-1]
@@ -457,27 +521,34 @@ def time_step_passes(torch, args, dev, card: str) -> dict:
         scratch.data_ptr(), foam.data_ptr(), scal.data_ptr(), tw.data_ptr(), disp.data_ptr(),
         normal.data_ptr(), foam_out.data_ptr(), c, n, 1, disp.stride(0), normal.stride(0),
         cols.lines, cols.pitch, cols.join_pitch, stream)
-    check(row_pass() == 0 and col_pass() == 0, "a K1 pass failed to launch")
-    rows_ms = time_cuda(row_pass, iters=50)
-    cols_ms = time_cuda(col_pass, iters=50)
-    texels = c * n * n
-    rows_bytes = texels * (8 + 8 + 4 + 32)          # h0, h0nc, omega in; scratch out
-    cols_bytes = texels * (32 + 4 + 4 + 7 * 2)      # scratch, foam in; foam, bf16 maps out
-    x = torch.randn((fft_plan.LAYERS * c, 2, n, n), generator=torch.Generator(
-        device=dev).manual_seed(5), device=dev)
-    pair = lambda: (row_pass(), col_pass())
-    k2 = lambda: planes_fft.ifft2_packed_planes(x, fold_sign=True)
-    t = [time_cuda(f, iters=50) for f in (pair, k2, k2, pair)]
-    pair_ms, k2_ms = min(t[0], t[3]), min(t[1], t[2])
-    log(f"[5] K1 passes alone at {c} x {n}^2 bf16 (CUDA events, best of 3 x 50; plans rows "
-        f"{rows.lines} x 4 layers, {rows.threads} threads, cols {cols.lines} x 4 layers, "
-        f"{cols.threads} threads): row pass {rows_ms:.4f} ms ({rows_bytes / rows_ms / 1e9:.3f} "
-        f"TB/s of {rows_bytes / 1e6:.1f} MB), column pass {cols_ms:.4f} ms "
-        f"({cols_bytes / cols_ms / 1e9:.3f} TB/s of {cols_bytes / 1e6:.1f} MB); pair by the "
-        f"library calls {pair_ms:.4f} ms, K2 at {x.shape[0]} x {n}^2 {k2_ms:.4f} ms "
-        f"(turns {[round(v, 4) for v in t]}); card {card}")
-    return {"rows_ms": rows_ms, "cols_ms": cols_ms, "pair_ms": pair_ms, "k2_ms": k2_ms,
-            "scratch_bytes": 2 * nbytes(scratch)}
+    return time_passes(
+        torch, f"[5] K1 at {c} x {n}^2 bf16 (plans rows {rows.lines} x 4 layers, "
+        f"{rows.threads} threads, cols {cols.lines} x 4 layers, {cols.threads} threads)",
+        row_pass, col_pass, c * n * n, layer_planes(torch, c, n, dev), card)
+
+
+def strip_passes(torch, args, dev):
+    """K4's row pass and column pass through the library calls on buffers of
+    the wrapper's shapes (bf16 maps): (row pass, column pass)."""
+    from godotoceanwaves_tpu_torch.ops import _build, fft_plan
+    h0, h0nc, omega, foam, scal = args
+    lib = _build.load()
+    c, n = h0.shape[0], h0.shape[-1]
+    rows, cols = fft_plan.strip_rows_plan(n), fft_plan.strip_cols_plan(n)
+    tw, twn = fft_plan.twiddles(fft_plan.STRIP_LENGTH, dev), fft_plan.twiddles(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
+    disp = torch.empty((c, 3, n, n), dtype=torch.bfloat16, device=dev)
+    normal = torch.empty((c, 4, n, n), dtype=torch.bfloat16, device=dev)
+    foam_out = torch.empty_like(foam)
+    row_pass = lambda: lib.strip_step_rows(
+        h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(), scal.data_ptr(), tw.data_ptr(),
+        twn.data_ptr(), scratch.data_ptr(), c, n, rows.lines, rows.pitch, rows.join_pitch, stream)
+    col_pass = lambda: lib.strip_step_cols(
+        scratch.data_ptr(), foam.data_ptr(), scal.data_ptr(), tw.data_ptr(), twn.data_ptr(),
+        disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n, 1, disp.stride(0),
+        normal.stride(0), cols.lines, cols.pitch, cols.join_pitch, stream)
+    return row_pass, col_pass
 
 
 def phase_timing(torch, T, fs, dev, card: str) -> tuple[float, float]:
@@ -699,7 +770,6 @@ def phase_config5(torch, T, dev) -> dict:
 
 def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
     from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, step
-    from godotoceanwaves_tpu_torch.ops import _build
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
     out = {}
     ocean = config5_ocean(T, dev, "auto")
@@ -720,34 +790,45 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
         state[0], _ = step(ocean.config, state[0], p, dt)
     step_ms = time_cuda(one_step, iters=20)
 
-    # the two passes alone, on the wrapper's own buffers
-    lib = _build.load()
-    c, n = 2, STRIP_SIZE
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = torch.empty((c, n, n, 8), dtype=torch.float32, device=dev)
-    disp = torch.empty((c, 3, n, n), dtype=torch.bfloat16, device=dev)
-    normal = torch.empty((c, 4, n, n), dtype=torch.bfloat16, device=dev)
-    foam_out = torch.empty_like(st.foam)
-    rows = lambda: lib.strip_step_rows(st.h0.data_ptr(), st.h0nc.data_ptr(), st.omega.data_ptr(),
-                                       scal.data_ptr(), scratch.data_ptr(), c, n, stream)
-    cols = lambda: lib.strip_step_cols(scratch.data_ptr(), st.foam.data_ptr(), scal.data_ptr(),
-                                       disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(),
-                                       c, n, 1, disp.stride(0), normal.stride(0), stream)
-    check(rows() == 0 and cols() == 0, "a strip pass failed to launch")
-    rows_ms = time_cuda(rows, iters=50)
-    cols_ms = time_cuda(cols, iters=50)
-    texels = c * n * n
-    rows_bytes = texels * (8 + 8 + 4 + 32)          # h0, h0nc, omega in; scratch out
-    cols_bytes = texels * (32 + 4 + 4 + 7 * 2)      # scratch, foam in; foam, bf16 maps out
-    out["K4_rows"] = (rows_ms, rows_bytes / rows_ms / 1e9)
-    out["K4_cols"] = (cols_ms, cols_bytes / cols_ms / 1e9)
-    log(f"[9] config 5 (2 x {n}^2 bf16), ms/frame (CUDA events, best of 3 x 20): K4 {ms:.4f}, "
-        f"plain {plain_ms:.4f}, step() {step_ms:.4f}; turns {[round(x, 4) for x in t]}; "
-        f"row pass {rows_ms:.4f} ms ({rows_bytes / rows_ms / 1e9:.3f} TB/s of "
-        f"{rows_bytes / 1e6:.1f} MB), column pass {cols_ms:.4f} ms "
-        f"({cols_bytes / cols_ms / 1e9:.3f} TB/s of {cols_bytes / 1e6:.1f} MB); card {card}")
-    del ocean, st, args, scratch, disp, normal, foam_out, state
+    log(f"[9] config 5 (2 x {STRIP_SIZE}^2 bf16), ms/frame (CUDA events, best of 3 x 20): K4 "
+        f"{ms:.4f}, plain {plain_ms:.4f}, step() {step_ms:.4f}; turns "
+        f"{[round(x, 4) for x in t]}; card {card}")
+    # the two passes alone, and the pair beside K2 over the same 8 planes
+    row_pass, col_pass = strip_passes(torch, args, dev)
+    passes = time_passes(torch, f"[9] K4 at 2 x {STRIP_SIZE}^2 bf16", row_pass, col_pass,
+                         2 * STRIP_SIZE ** 2, layer_planes(torch, 2, STRIP_SIZE, dev), card)
+    out["K4_passes"] = passes
+    moved = nbytes(*args, *ss.strip_cascade_step(*args, map_dtype=torch.bfloat16))
+    through = moved + passes["scratch_bytes"]
+    bnd = out["K4_bound"]
+    log(f"[9] K4 pair {ms:.4f} ms: {moved / ms / 1e9:.3f} TB/s of the function's "
+        f"{moved / 1e6:.1f} MB, {through / ms / 1e9:.3f} TB/s of the {through / 1e6:.1f} MB the "
+        f"pair moves (scratch out and back included), {bnd[0] / ms:.1%} of its bound "
+        f"{bnd[0]:.4f} ({bnd[1]}); K2 at 8 x {STRIP_SIZE}^2 in the same phase "
+        f"{passes['k2_ms']:.4f} ms, K4 / K2 {ms / passes['k2_ms']:.3f}; card {card}")
+    del ocean, st, args, state, row_pass, col_pass
     torch.cuda.empty_cache()
+
+    # the split (N = 4096, 8192), one cascade
+    for n in STRIP_BIG:
+        params, st = seeded_inputs(torch, T, n, dev, config5_params(T, dev, 1))
+        grow, decay = _foam_rates(params, dt)
+        scal = fs.pack_scalars(st.time + dt, params.tile_length, params.whitecap, grow, decay)
+        args = (st.h0, st.h0nc, st.omega, st.foam, scal)
+        k_ms = time_cuda(lambda: ss.strip_cascade_step(*args, map_dtype=torch.bfloat16))
+        row_pass, col_pass = strip_passes(torch, args, dev)
+        check(row_pass() == 0 and col_pass() == 0, f"a K4 pass failed to launch at N={n}")
+        rows_ms, cols_ms = time_cuda(row_pass), time_cuda(col_pass)
+        moved = nbytes(*args, *ss.strip_cascade_step(*args, map_dtype=torch.bfloat16))
+        bnd = step_bound(args, ss.strip_cascade_step(*args, map_dtype=torch.bfloat16), 1, n)
+        through = moved + 2 * n * n * 32
+        out[("K4", n)] = (k_ms, rows_ms, cols_ms, bnd)
+        log(f"[9] K4 at 1 x {n}^2 bf16 (split {n // STRIP_SIZE}), ms (CUDA events, best of 3 x "
+            f"20): pair {k_ms:.4f} ({through / k_ms / 1e9:.3f} TB/s of the {through / 1e6:.1f} MB "
+            f"it moves), row pass {rows_ms:.4f}, column pass {cols_ms:.4f}; {bnd[0] / k_ms:.1%} "
+            f"of its bound {bnd[0]:.4f} ({bnd[1]}); card {card}")
+        del params, st, args, row_pass, col_pass
+        torch.cuda.empty_cache()
 
     # the staged tier's frame (fused="never"): modulate, K2, unpack
     staged = config5_ocean(T, dev, "never")
@@ -1426,7 +1507,10 @@ def main() -> int:
              max_abs_err=strip_errs[(STRIP_SIZE, torch.bfloat16, 1)],
              max_abs_err_fp32=strip_errs[(STRIP_SIZE, torch.float32, 1)],
              ms=k4_ms, plain_ms=k4_plain_ms, **bounds(timing["K4_bound"]), library_ms=None,
-             shape=f"2 x {STRIP_SIZE}^2 bf16 maps"),
+             shape=f"2 x {STRIP_SIZE}^2 bf16 maps", rows_ms=timing["K4_passes"]["rows_ms"],
+             cols_ms=timing["K4_passes"]["cols_ms"], k2_same_planes_ms=timing["K4_passes"]["k2_ms"],
+             **{f"ms_1x{n}": timing[("K4", n)][0] for n in STRIP_BIG},
+             **{f"bound_ms_1x{n}": timing[("K4", n)][3][0] for n in STRIP_BIG}),
         dict(KERNELS["K5"], route="cuda", launches=path["launches_K5"],
              max_abs_err=max(tap_res["random"], tap_res["real"]),
              max_abs_err_real_frame=tap_res["real"], ms=rtime["K5"][0], plain_ms=rtime["K5"][1],

@@ -37,11 +37,12 @@ _SIGNATURES = {
     # fused_step_cols(scratch, foam_in, scal, tw, disp, normal, foam_out, c, n,
     #                 dtype, disp_cstride, norm_cstride, cols, pitch, jpitch, stream)
     "fused_step_cols": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P),
-    # strip_step_rows(h0, h0nc, omega, scal, scratch, c, n, stream)
-    "strip_step_rows": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # strip_step_cols(scratch, foam_in, scal, disp, normal, foam_out, c, n,
-    #                 dtype, disp_cstride, norm_cstride, stream)
-    "strip_step_cols": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    # strip_step_rows(h0, h0nc, omega, scal, tw, twn, scratch, c, n, rows, pitch, jpitch,
+    #                 stream)
+    "strip_step_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # strip_step_cols(scratch, foam_in, scal, tw, twn, disp, normal, foam_out, c, n,
+    #                 dtype, disp_cstride, norm_cstride, cols, pitch, jpitch, stream)
+    "strip_step_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P),
     # planes_fft_cols(mid, out, tw, l, n, fold_sign, cols, pitch, tile, stream)
     "planes_fft_cols": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # rows_fft(x, out, tw, l, r, n, fold_sign, seqs, pitch, tile, stream)

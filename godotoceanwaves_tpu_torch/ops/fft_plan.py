@@ -17,7 +17,11 @@ The fused step's plans (`step_rows_plan`, `step_cols_plan`) hold 4 layer
 sequences for each row or column of a block, and a join buffer
 (`join_pitch`) in the exchange buffer's place: through it the row pass
 hands each modulated texel's 4 layers to their sequences, and the column
-pass brings the 4 layers of each output texel together.
+pass brings the 4 layers of each output texel together. The strip step's
+plans (`strip_rows_plan`, `strip_cols_plan`) are the same at one transform
+length, 2048, with a split: N / 2048 blocks share each row or column of an
+N x N map, block e taking the outputs of parity e mod split after a radix-
+split pre-stage (`csrc/step_passes.cuh`).
 
 The kernels take the plan as arguments and refuse one that does not fit
 them. Nothing here touches the card except `twiddles`, which builds the
@@ -41,6 +45,8 @@ COLS_THREADS = 256     # threads a column-pass block aims at
 LAYERS = 4             # packed layers of the fused step (texel::kLayers)
 STEP_MAX_N = 1024      # the fused step's largest N
 STEP_THREADS = 256     # threads a fused-step block aims at, either pass
+STRIP_LENGTH = 2048    # the strip step's transform length: 4 layers of it fill a block
+STRIP_SPLITS = (1, 2, 4)   # blocks a row or column of the strip step: N = 2048, 4096, 8192
 
 
 def log2(n: int) -> int:
@@ -84,6 +90,7 @@ class Plan:
     column_major: bool = False   # stage 0 maps consecutive threads to consecutive sequences
     layers: int = 1     # sequences of one line; sequence s is layer s mod layers of line s / layers
     join_pitch: int = 0   # words between two sequences in the join buffer (0: no join)
+    split: int = 1      # blocks a line of n * split points; block e takes the outputs e mod split
 
     @property
     def lines(self) -> int:
@@ -155,11 +162,11 @@ def _join_pitch(n: int) -> int:
     return n + (t if t < 32 else 8)
 
 
-def _step_plan(n: int, threads: int, column_major: bool) -> Plan:
-    _check_step(n)
+def _step_plan(n: int, threads: int, column_major: bool, split: int = 1) -> Plan:
     lines = min(n, max(1, threads // (LAYERS * (n // POINTS))))
     seqs = LAYERS * lines
-    return Plan(n, seqs, _pitch(n, seqs, column_major), column_major, LAYERS, _join_pitch(n))
+    return Plan(n, seqs, _pitch(n, seqs, column_major), column_major, LAYERS, _join_pitch(n),
+                split)
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,6 +175,7 @@ def step_rows_plan(n: int, threads: int = STEP_THREADS) -> Plan:
     `threads` / (4 N / 16) rows, at least one, at most N. The join buffer
     carries the modulated layers to the threads of their sequences and the
     transformed ones back to the texel records."""
+    _check_step(n)
     return _step_plan(n, threads, False)
 
 
@@ -176,7 +184,32 @@ def step_cols_plan(n: int, threads: int = STEP_THREADS) -> Plan:
     """The fused column pass: columns a block, each as 4 layer sequences,
     `threads` / (4 N / 16) columns, at least one, at most N. The join buffer
     brings the 4 layers of each output texel together for the unpack."""
+    _check_step(n)
     return _step_plan(n, threads, True)
+
+
+def _strip_plan(n: int, length: int, column_major: bool) -> Plan:
+    if n & (n - 1) or length & (length - 1) or not MIN_N <= length <= STRIP_LENGTH \
+            or n % length or n // length not in STRIP_SPLITS:
+        raise ValueError(f"the strip step takes N = {STRIP_LENGTH} x {STRIP_SPLITS}, got {n} "
+                         f"(transform length {length})")
+    return _step_plan(length, STEP_THREADS, column_major, split=n // length)
+
+
+@functools.lru_cache(maxsize=None)
+def strip_rows_plan(n: int, length: int = STRIP_LENGTH) -> Plan:
+    """The strip row pass of an N x N map: one row a block as 4 layer
+    sequences of `length` points, N / length blocks a row (the split). The
+    kernels take length 2048 only; a shorter one models the split at small
+    N."""
+    return _strip_plan(n, length, False)
+
+
+@functools.lru_cache(maxsize=None)
+def strip_cols_plan(n: int, length: int = STRIP_LENGTH) -> Plan:
+    """The strip column pass of an N x N map: one column a block as 4 layer
+    sequences of `length` points, N / length blocks a column."""
+    return _strip_plan(n, length, True)
 
 
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}

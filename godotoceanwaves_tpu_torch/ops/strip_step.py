@@ -1,15 +1,20 @@
-"""The strip step: the fused per-cascade ocean step for 1024 < N <= 8192.
+"""The strip step: the fused per-cascade ocean step for 2048 <= N <= 8192.
 
 Replaces `godotoceanwaves_tpu/ops/pallas_strip.py` `strip_cascade_step` (the
 Pallas kernels `_pass1_kernel` and `_pass2_kernel`). It takes the arguments
 of `fused_step.fused_cascade_step` and returns the same results. On a CUDA
-tensor it launches the kernel pair in `csrc/strip_step.cu` (a row pass and
-a column pass over an fp32 scratch, with an in-place shared-memory FFT; see
-the design note there); on a CPU tensor it runs the plain PyTorch version,
-the modulate -> `fft.ifft2_packed_planes` -> unpack chain.
+tensor it launches the kernel pair in `csrc/strip_step.cu`: K1's row and
+column passes (`csrc/step_passes.cuh`, on the Stockham core) at one
+transform length, 2048, with the launch plans of `fft_plan.strip_rows_plan`
+and `strip_cols_plan`; at 4096 and 8192, 2 or 4 blocks share each row and
+column, one per output parity (see the design note there). On a CPU tensor
+it runs the plain PyTorch version, the modulate -> `fft.ifft2_packed_planes`
+-> unpack chain.
 
-The pair is bound by device memory bandwidth: about 445 MB per
-cascade-frame at 2048^2, of which 268 MB is the scratch round trip.
+The pair is bound by device memory bandwidth: about 176 MB per
+cascade-frame at 2048^2 (bf16 maps), plus the 268 MB round trip of its
+(C, N, N, 8) fp32 scratch of texel records. The new foam is a fresh tensor
+(the kernels would allow it to alias the old, as K1's frames do).
 
 What the TPU kernels needed and these do not: the sigma digit un-swap, the
 block-tiled (c, 4, 2, s, r, 128, 128) exchange layout, `buffer_count`
@@ -19,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from . import fused_step
+from . import fft_plan, fused_step
 
 MIN_N, MAX_N = 2048, 8192
 
@@ -45,19 +50,25 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
     dev = h0.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = torch.empty((c, n, n, 8), dtype=torch.float32, device=dev)
+        rows, cols = fft_plan.strip_rows_plan(n), fft_plan.strip_cols_plan(n)
+        tw = fft_plan.twiddles(fft_plan.STRIP_LENGTH, dev)   # the 2048-point stages
+        twn = fft_plan.twiddles(n, dev)                      # the split's w_N^(e j)
+        scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
         disp = torch.empty((c, 3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty((c, 4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
         rc = lib.strip_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                 scalars.data_ptr(), scratch.data_ptr(), c, n, stream)
+                                 scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(),
+                                 scratch.data_ptr(), c, n, rows.lines, rows.pitch,
+                                 rows.join_pitch, stream)
         if rc:
             raise RuntimeError(f"strip_step_rows launch failed: cudaError {rc}")
         LAUNCHES += 1
         rc = lib.strip_step_cols(
-            scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), disp.data_ptr(),
-            normal.data_ptr(), foam_out.data_ptr(), c, n, fused_step.DTYPE_CODES[map_dtype],
-            disp.stride(0), normal.stride(0), stream)
+            scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
+            twn.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n,
+            fused_step.DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0), cols.lines,
+            cols.pitch, cols.join_pitch, stream)
         if rc:
             raise RuntimeError(f"strip_step_cols launch failed: cudaError {rc}")
         LAUNCHES += 1
@@ -65,7 +76,7 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
 
 
 def strip_cascade_step(h0, h0nc, omega, foam, scalars, *, map_dtype=torch.bfloat16):
-    """One frame for C cascades at 1024 < N <= 8192.
+    """One frame for C cascades at 2048 <= N <= 8192.
 
     h0/h0nc: (C, 2, N, N) fp32 planes; omega: (C, N, N) fp32 host-exact
     dispersion; foam: (C, N, N) fp32; scalars: (C, 1, NUM_SCALARS) fp32

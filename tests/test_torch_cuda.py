@@ -154,8 +154,10 @@ def test_ocean_on_card_matches_ocean_on_cpu(card):
 
 
 @pytest.mark.parametrize("n,dtype", [(2048, "float32"), (2048, "bfloat16"), (2048, "float16"),
-                                     (4096, "float32")])
+                                     (4096, "float32"), (8192, "bfloat16")])
 def test_strip_kernel_matches_plain(card, n, dtype):
+    """K4 (one cascade) at 2048, and at 4096 and 8192 through the split,
+    within the tolerances above."""
     args = inputs(n, card, multi=False, cascades=1)
     before = strip_step.LAUNCHES
     got = strip_step.strip_cascade_step(*args, map_dtype=DTYPES[dtype])

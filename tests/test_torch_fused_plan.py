@@ -102,32 +102,82 @@ class Trace:
         self.map_stores, self.foam = [], []
 
 
-def row_pass(n, h0, h0nc, omega, scal, frame, table, trace, blocks=None):
-    """The row pass of every cascade: the scratch as a flat complex array,
-    layer l of texel (c, y, k) at 4 ((c N + y) N + k) + l (the fp32 record
-    (C, N, N, 8) holds its Re and Im at twice that and one more). `blocks`
-    runs only the first blocks of each cascade."""
-    plan = plans(n)["rows"]
+def layers_of(h0, h0nc, omega, scal, frame, n):
+    """`layers(c, y0, rows)` of the row passes: texel::modulate of rows
+    y0.. of cascade c, (4, rows, N) complex."""
+    cache = {}
+
+    def layers(c, y0, rows):
+        if c not in cache:
+            cache[c] = modulate(h0[c], h0nc[c], omega[c], scal[c, 0], frame, n)
+        return cache[c][:, y0:y0 + rows]
+    return layers
+
+
+def ones_layers(n):
+    """Layers of any value, for runs that look only at addresses."""
+    return lambda c, y0, rows: np.ones((L, rows, n), complex)
+
+
+def zeros_scratch(cascades, n):
+    """A scratch of any value, for runs that look only at addresses (a
+    broadcast view: no memory)."""
+    return np.broadcast_to(np.zeros(1, complex), (cascades, n, n, L))
+
+
+def unit_root(table_n, k):
+    """e^{+2 pi i k / N}, k < N, from the N-point half table as the kernels
+    read it (step_passes.cuh unit_root): the second half is the first
+    negated."""
+    half = len(table_n)
+    return np.where(k < half, table_n[k % half], -table_n[k % half])
+
+
+def split_term(z, e, p, split):
+    """Term p of block e's pre-stage: z e^{+2 pi i e p / split}, as quarter
+    turns."""
+    return z * 1j ** ((e * p * (4 // split)) % 4)
+
+
+def block_order(n, lines, split, blocks):
+    """The (first line, parity) of every block of a cascade, in launch
+    order, or of its first `blocks`."""
+    return [(first, e) for first in range(0, n, lines) for e in range(split)][:blocks]
+
+
+def row_pass(plan, layers, cascades, table, trace, blocks=None):
+    """The row pass of every cascade at N = plan.n * plan.split: the scratch
+    (C, R, N, 4) complex, layer l of texel (c, y, k) at [c, y, k, l] (the
+    fp32 record (C, N, N, 8) holds its Re and Im at words 2l and 2l + 1);
+    R = N, or the rows of the first `blocks` blocks of each cascade.
+    `layers(c, y0, rows)` gives the modulated layers (4, rows, N)."""
+    m_len, split = plan.n, plan.split
+    n = m_len * split
     lines, tps, jp = plan.lines, plan.threads_per_seq, plan.join_pitch
-    scratch = np.full(h0.shape[0] * n * n * L, np.nan + 0j)
+    order = block_order(n, lines, split, blocks)
+    scratch = np.full((cascades, max(y0 for y0, _ in order) + lines, n, L), np.nan + 0j)
     seq, t = thread_map(plan, 1)
     i = np.arange(plan.threads)
-    for c in range(h0.shape[0]):
-        lay = modulate(h0[c], h0nc[c], omega[c], scal[c, 0], frame, n)
-        for y0 in range(0, n, lines)[:blocks]:
-            # thread i modulates texels i + j B of the block's rows once and
-            # writes layer l of texel (r, x) to sequence 4 r + l of the join
+    table_n = exact_table(n)
+    for c in range(cascades):
+        for y0, e in order:
+            lay = layers(c, y0, lines)
+            # thread i takes points i + j B of the block's rows: the
+            # pre-stage's sum over the row's `split` parts, then w_N^(e x);
+            # layer l of point (r, x) goes to sequence 4 r + l of the join
             # buffer
             words = np.full(plan.seqs * jp, np.nan + 0j)
             for j in range(fft_plan.POINTS // L):
-                r, x = (i + j * plan.threads) // n, (i + j * plan.threads) % n
+                r, x = (i + j * plan.threads) // m_len, (i + j * plan.threads) % m_len
+                point = sum(split_term(lay[:, r, x + p * m_len], e, p, split)
+                            for p in range(split)) * unit_root(table_n, e * x)
                 for q in range(L):
                     addr = (r * L + q) * jp + x
                     assert np.isnan(words[addr]).all(), "two layers share a join word"
-                    words[addr] = lay[q, y0 + r, x]
+                    words[addr] = point[q]
                     trace.join.append(addr)
             # thread (s, t) loads its points t + m T of sequence s
-            block = np.empty((plan.seqs, n), complex)
+            block = np.empty((plan.seqs, m_len), complex)
             for m in range(fft_plan.POINTS):
                 addr = seq * jp + t + m * tps
                 block[seq, t + m * tps] = words[addr]
@@ -141,44 +191,57 @@ def row_pass(n, h0, h0nc, omega, scal, frame, table, trace, blocks=None):
                 words[addr] = out[seq, t + m * tps]
                 trace.join.append(addr)
             # ... and stores 16 bytes of a record a slot: slot i + u B holds
-            # layers 2h and 2h + 1 of the block's texel slot / 2, h = slot mod 2
-            first = (c * n + y0) * n
+            # layers 2h and 2h + 1 of output k = (slot / 2) mod M of row
+            # y0 + (slot / 2) / M, h = slot mod 2, at map column split k + e
             for u in range(2 * fft_plan.POINTS // L):
                 slot = i + u * plan.threads
                 q, h = slot // 2, slot % 2
-                w0 = ((q // n) * L + 2 * h) * jp + q % n
+                y, col = y0 + q // m_len, split * (q % m_len) + e
+                w0 = ((q // m_len) * L + 2 * h) * jp + q % m_len
                 trace.join.extend([w0, w0 + jp])
-                for e, w in enumerate((w0, w0 + jp)):
-                    a = (first + q) * L + 2 * h + e
-                    assert np.isnan(scratch[a]).all(), "two stores share a scratch word"
-                    scratch[a] = words[w]
-                    assert not np.isnan(scratch[a]).any(), "a record got a word never written"
-                trace.scratch_stores.append(4 * (2 * first + slot)[:, None] + np.arange(4))
+                for half, w in enumerate((w0, w0 + jp)):
+                    assert np.isnan(scratch[c, y, col, 2 * h + half]).all(), \
+                        "two stores share a scratch word"
+                    scratch[c, y, col, 2 * h + half] = words[w]
+                    assert not np.isnan(scratch[c, y, col, 2 * h + half]).any(), \
+                        "a record got a word never written"
+                rec = (c * n + y) * n + col
+                trace.scratch_stores.append(8 * rec[:, None] + 4 * h[:, None] + np.arange(4))
     assert blocks or not np.isnan(scratch).any(), "a scratch word was never stored"
     return scratch
 
 
-def col_pass(n, scratch, foam_in, scal, table, trace, blocks=None):
-    """The column pass of every cascade: (displacement, normal, foam).
-    `blocks` runs only the first blocks of each cascade."""
-    plan = plans(n)["cols"]
+def col_pass(plan, scratch, foam_in, scal, table, trace, blocks=None):
+    """The column pass of every cascade at N = plan.n * plan.split:
+    (displacement (C, 3, R, N), normal (C, 4, R, N), foam (C, R, N)) of
+    output rows 0..R-1; R = N, or the rows of the first `blocks` blocks of
+    each cascade. `scratch[c, y, x, l]` as row_pass leaves it."""
+    m_len, split = plan.n, plan.split
+    n = m_len * split
     lines, tps, jp, seqs = plan.lines, plan.threads_per_seq, plan.join_pitch, plan.seqs
     cascades = foam_in.shape[0]
-    disp = np.full((cascades, 3, n, n), np.nan)
-    normal = np.full((cascades, 4, n, n), np.nan)
-    foam = np.full((cascades, n, n), np.nan)
+    order = block_order(n, lines, split, blocks)
+    rows = max(x0 for x0, _ in order) + lines
+    disp = np.full((cascades, 3, rows, n), np.nan)
+    normal = np.full((cascades, 4, rows, n), np.nan)
+    foam = np.full((cascades, rows, n), np.nan)
     s0, t0 = thread_map(plan, 0)
     s1, t1 = thread_map(plan, 1)
+    table_n = exact_table(n)
     for c in range(cascades):
-        for x0 in range(0, n, lines)[:blocks]:
-            # stage 0: sequence (column x0 + s / 4, layer s mod 4) fastest
+        for x0, e in order:
+            # stage 0: sequence (column x0 + s / 4, layer s mod 4) fastest;
+            # the pre-stage sums the column's `split` parts, one load each
             layer, x = s0 % L, x0 + s0 // L
-            block = np.empty((seqs, n), complex)
+            block = np.empty((seqs, m_len), complex)
             for m in range(fft_plan.POINTS):
                 y = t0 + m * tps
-                rec = (c * n + y) * n + x
-                block[s0, y] = scratch[rec * L + layer]
-                trace.scratch_loads.append((8 * rec + 2 * layer)[:, None] + np.arange(2))
+                point = 0
+                for p in range(split):
+                    point = point + split_term(scratch[c, y + p * m_len, x, layer], e, p, split)
+                    rec = (c * n + y + p * m_len) * n + x
+                    trace.scratch_loads.append((8 * rec + 2 * layer)[:, None] + np.arange(2))
+                block[s0, y] = point * unit_root(table_n, e * y)
             out = run_block(plan, block, table)
             # the join: thread (s, t) writes its outputs t + m T
             words = np.full(seqs * jp, np.nan + 0j)
@@ -187,12 +250,14 @@ def col_pass(n, scratch, foam_in, scal, table, trace, blocks=None):
                 assert np.isnan(words[addr]).all(), "two outputs share a join word"
                 words[addr] = out[s1, t1 + m * tps]
                 trace.join.append(addr)
-            # ... and unpacks outputs t + (layer + 4 j) T of its column
+            # ... and unpacks outputs k = t + (layer + 4 j) T of its column
+            # into map column split k + e
             layer, col = s1 % L, s1 // L
             kx = x0 + col
             for j in range(fft_plan.POINTS // L):
-                m = t1 + (layer + L * j) * tps
-                reads = [(col * L + q) * jp + m for q in range(L)]
+                k = t1 + (layer + L * j) * tps
+                m = split * k + e
+                reads = [(col * L + q) * jp + k for q in range(L)]
                 trace.join.extend(reads)
                 lay = np.stack([words[a] for a in reads])
                 assert not np.isnan(lay).any(), "the join read a word never written"
@@ -205,14 +270,17 @@ def col_pass(n, scratch, foam_in, scal, table, trace, blocks=None):
     return disp, normal, foam
 
 
-def model_frames(n, h0, h0nc, omega, foam, scal, frames=1, trace=None):
-    """`frames` frames of the pair, foam carried from one to the next."""
+def model_frames(rows, cols, h0, h0nc, omega, foam, scal, frames=1, trace=None):
+    """`frames` frames of the pair on plans `rows` and `cols`, foam carried
+    from one to the next."""
     trace = Trace() if trace is None else trace
-    table = exact_table(n)
+    n = rows.n * rows.split
+    table = exact_table(rows.n)
     out = []
     for k in range(frames):
-        scratch = row_pass(n, h0, h0nc, omega, scal, k, table, trace)
-        d, nm, foam = col_pass(n, scratch, foam, scal, table, trace)
+        scratch = row_pass(rows, layers_of(h0, h0nc, omega, scal, k, n), h0.shape[0], table,
+                           trace)
+        d, nm, foam = col_pass(cols, scratch, foam, scal, table, trace)
         out.append((d, nm))
     return out, foam
 
@@ -226,7 +294,7 @@ def test_pair_through_its_global_layouts_equals_the_plain_step(n):
     """One frame of 2 cascades: the model equals the plain version (float64
     inputs, float64 maps) to 1e-10 relative."""
     args = inputs(n)
-    (out,), foam = model_frames(n, *args)
+    (out,), foam = model_frames(*plans(n).values(), *args)
     want = fused_step.fused_cascade_step_reference(*(torch.from_numpy(a) for a in args),
                                                    map_dtype=torch.float64)
     for got, ref in zip((*out, foam), want):
@@ -240,7 +308,7 @@ def test_pair_carries_foam_in_place_across_frames():
     n, frames = 64, 3
     args = inputs(n, seed=5)
     trace = Trace()
-    out, foam = model_frames(n, *args, frames=frames, trace=trace)
+    out, foam = model_frames(*plans(n).values(), *args, frames=frames, trace=trace)
     want = fused_step.fused_cascade_multi_step_reference(
         *(torch.from_numpy(a) for a in args), num_frames=frames, map_dtype=torch.float64)
     for k in range(frames):
@@ -278,10 +346,20 @@ def test_step_exchanges_and_join_spread_over_the_banks(n):
         run_block(plan, np.ones((plan.seqs, n), complex), exact_table(n), exchanges)
         assert max((wavefronts(a) for a in exchanges), default=1) <= limit
     trace = Trace()
-    h0, h0nc, omega, foam, scal = inputs(n, cascades=1)
-    row_pass(n, h0, h0nc, omega, scal, 0, exact_table(n), trace, blocks=2)
-    col_pass(n, np.zeros(L * n * n, complex), foam, scal, exact_table(n), trace, blocks=2)
+    model_addresses(plans(n), trace)
     assert max(wavefronts(a) for a in trace.join) <= limit
+
+
+def model_addresses(pair, trace, blocks=2):
+    """The first `blocks` blocks of each pass of one cascade on the plans
+    `pair` ({"rows": ..., "cols": ...}), on values that do not matter: the
+    join, scratch and map addresses into `trace`."""
+    rows, cols = pair["rows"], pair["cols"]
+    n = rows.n * rows.split
+    table = exact_table(rows.n)
+    row_pass(rows, ones_layers(n), 1, table, trace, blocks=blocks)
+    col_pass(cols, zeros_scratch(1, n), np.broadcast_to(np.zeros(1), (1, n, n)),
+             inputs(16, cascades=1)[4], table, trace, blocks=blocks)
 
 
 def whole_sectors(accesses, size):
@@ -302,9 +380,7 @@ def test_scratch_moves_whole_sectors(n):
     record loads (8 bytes a lane, the 4 layers of a column in adjacent
     lanes) cover whole 32-byte sectors in each warp."""
     trace = Trace()
-    h0, h0nc, omega, foam, scal = inputs(n, cascades=1)
-    scratch = row_pass(n, h0, h0nc, omega, scal, 0, exact_table(n), trace, blocks=2)
-    col_pass(n, np.nan_to_num(scratch), foam, scal, exact_table(n), trace, blocks=2)
+    model_addresses(plans(n), trace)
     assert whole_sectors(trace.scratch_stores, 4) and whole_sectors(trace.scratch_loads, 4)
 
 
@@ -314,8 +390,7 @@ def test_column_pass_map_stores_whole_sectors(n, size):
     """Each warp's map stores (bf16/f16 or fp32 elements of an output row)
     cover whole 32-byte sectors."""
     trace = Trace()
-    col_pass(n, np.zeros(L * n * n, complex), np.zeros((1, n, n)), inputs(16, cascades=1)[4],
-             exact_table(n), trace, blocks=2)
+    model_addresses(plans(n), trace)
     assert whole_sectors(trace.map_stores, size)
 
 
