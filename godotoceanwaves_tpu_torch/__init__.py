@@ -3,11 +3,11 @@
 Mirrors the JAX package's module layout and public names. The per-frame
 step (modulate -> Hermitian-packed 2D IFFT -> unpack + foam) runs on a CUDA
 device through hand-written kernels (`csrc/fused_step.cu` for N <= 1024,
-`csrc/strip_step.cu` for 1024 < N <= 8192, `csrc/rows_fft.cu` +
-`csrc/planes_fft.cu` as the staged path's FFT, `csrc/rows_fft.cu` alone as
-the row-sharded FFT's local pass in `parallel`; the last two on the
-register-resident Stockham core `csrc/stockham.cuh`), and on the CPU through
-their plain PyTorch versions.
+`csrc/strip_step.cu` for 2048 <= N <= 8192, both on the pass bodies of
+`csrc/step_passes.cuh`; `csrc/rows_fft.cu` + `csrc/planes_fft.cu` as the
+staged path's FFT, `csrc/rows_fft.cu` alone as the row-sharded FFT's local
+pass in `parallel`; all of them on the register-resident Stockham core
+`csrc/stockham.cuh`), and on the CPU through their plain PyTorch versions.
 Imports `torch`, never `jax`.
 """
 from . import models, ops, parallel

@@ -1,6 +1,6 @@
 // Register-resident, self-sorting (Stockham) FFT core of the rows DFT
 // (rows_fft.cu), the planes IFFT's column pass (planes_fft.cu) and both
-// passes of the fused step (fused_step.cu).
+// passes of the fused and strip steps (step_passes.cuh).
 //
 // A sequence of n = 2^LOG2N points (16 <= n <= 8192) is held by T = n / 16
 // threads, 16 points a thread: thread t holds elements t + m T, m < 16, both
