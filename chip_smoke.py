@@ -535,7 +535,7 @@ def strip_passes(torch, args, dev):
     lib = _build.load()
     c, n = h0.shape[0], h0.shape[-1]
     rows, cols = fft_plan.strip_rows_plan(n), fft_plan.strip_cols_plan(n)
-    tw, twn = fft_plan.twiddles(fft_plan.STRIP_LENGTH, dev), fft_plan.twiddles(n, dev)
+    tw, twn = fft_plan.twiddles(rows.n, dev), fft_plan.twiddles(n, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
     disp = torch.empty((c, 3, n, n), dtype=torch.bfloat16, device=dev)
@@ -770,6 +770,7 @@ def phase_config5(torch, T, dev) -> dict:
 
 def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
     from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, step
+    from godotoceanwaves_tpu_torch.ops import fft_plan
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
     out = {}
     ocean = config5_ocean(T, dev, "auto")
@@ -823,7 +824,8 @@ def phase_timing_config5(torch, T, ss, pf, fs, fft, dev, card: str) -> dict:
         bnd = step_bound(args, ss.strip_cascade_step(*args, map_dtype=torch.bfloat16), 1, n)
         through = moved + 2 * n * n * 32
         out[("K4", n)] = (k_ms, rows_ms, cols_ms, bnd)
-        log(f"[9] K4 at 1 x {n}^2 bf16 (split {n // STRIP_SIZE}), ms (CUDA events, best of 3 x "
+        split = fft_plan.strip_rows_plan(n).split
+        log(f"[9] K4 at 1 x {n}^2 bf16 (split {split}), ms (CUDA events, best of 3 x "
             f"20): pair {k_ms:.4f} ({through / k_ms / 1e9:.3f} TB/s of the {through / 1e6:.1f} MB "
             f"it moves), row pass {rows_ms:.4f}, column pass {cols_ms:.4f}; {bnd[0] / k_ms:.1%} "
             f"of its bound {bnd[0]:.4f} ({bnd[1]}); card {card}")

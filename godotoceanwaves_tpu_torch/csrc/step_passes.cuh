@@ -13,9 +13,9 @@
 // a radix-S pre-stage done while loading (the inner sum by quarter turns,
 // which are exact, then one multiplication by w_N^(e j) from the wrapper's
 // N-point table), then the M-point transform. K1 runs S = 1, where the
-// pre-stage and its table are compiled out. K4 runs M = 2048 for every N:
-// 4 layers of one line are 4 x 128 threads, a whole block. Two kernels,
-// launched back to back on the caller's stream:
+// pre-stage and its table are compiled out; K4 runs S = 2 at N = 2048 and
+// 4096 and S = 4 at 8192 (strip_step.cu). Two kernels, launched back to back
+// on the caller's stream:
 //
 //   rows: block (R rows, parity e, cascade c), 4 sequences a row: sequence s
 //         is layer s mod 4 of row s / 4. Prologue: each texel of the

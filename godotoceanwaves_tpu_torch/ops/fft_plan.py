@@ -18,10 +18,11 @@ sequences for each row or column of a block, and a join buffer
 (`join_pitch`) in the exchange buffer's place: through it the row pass
 hands each modulated texel's 4 layers to their sequences, and the column
 pass brings the 4 layers of each output texel together. The strip step's
-plans (`strip_rows_plan`, `strip_cols_plan`) are the same at one transform
-length, 2048, with a split: N / 2048 blocks share each row or column of an
-N x N map, block e taking the outputs of parity e mod split after a radix-
-split pre-stage (`csrc/step_passes.cuh`).
+plans (`strip_rows_plan`, `strip_cols_plan`) are the same with a split: the
+transform is `strip_length(N)` points (1024 at N = 2048, 2048 above), and
+N / length blocks share each row or column of an N x N map, block e taking
+the outputs of parity e mod split after a radix-split pre-stage
+(`csrc/step_passes.cuh`).
 
 The kernels take the plan as arguments and refuse one that does not fit
 them. Nothing here touches the card except `twiddles`, which builds the
@@ -45,8 +46,8 @@ COLS_THREADS = 256     # threads a column-pass block aims at
 LAYERS = 4             # packed layers of the fused step (texel::kLayers)
 STEP_MAX_N = 1024      # the fused step's largest N
 STEP_THREADS = 256     # threads a fused-step block aims at, either pass
-STRIP_LENGTH = 2048    # the strip step's transform length: 4 layers of it fill a block
-STRIP_SPLITS = (1, 2, 4)   # blocks a row or column of the strip step: N = 2048, 4096, 8192
+STRIP_SIZES = (2048, 4096, 8192)   # the strip step's N
+STRIP_SPLITS = (1, 2, 4)   # blocks a line the pass bodies take (csrc/step_passes.cuh)
 
 
 def log2(n: int) -> int:
@@ -188,25 +189,36 @@ def step_cols_plan(n: int, threads: int = STEP_THREADS) -> Plan:
     return _step_plan(n, threads, True)
 
 
-def _strip_plan(n: int, length: int, column_major: bool) -> Plan:
-    if n & (n - 1) or length & (length - 1) or not MIN_N <= length <= STRIP_LENGTH \
+def strip_length(n: int) -> int:
+    """The strip step's transform length at N: 1024 at 2048 (split 2, 4 x 64
+    threads a block), 2048 above (split 2 and 4, 4 x 128 threads: a 4096-point
+    sequence would not fit a block). At 2048 the split's 256-thread blocks
+    measured faster than one 512-thread block a line, though each texel is
+    then modulated twice and each record read twice."""
+    if n not in STRIP_SIZES:
+        raise ValueError(f"the strip step takes N in {STRIP_SIZES}, got {n}")
+    return 1024 if n == 2048 else 2048
+
+
+def _strip_plan(n: int, length: int | None, column_major: bool) -> Plan:
+    length = strip_length(n) if length is None else length
+    if n & (n - 1) or length & (length - 1) or not MIN_N <= length <= 2048 \
             or n % length or n // length not in STRIP_SPLITS:
-        raise ValueError(f"the strip step takes N = {STRIP_LENGTH} x {STRIP_SPLITS}, got {n} "
-                         f"(transform length {length})")
+        raise ValueError(f"no strip plan for N = {n} at transform length {length}")
     return _step_plan(length, STEP_THREADS, column_major, split=n // length)
 
 
 @functools.lru_cache(maxsize=None)
-def strip_rows_plan(n: int, length: int = STRIP_LENGTH) -> Plan:
+def strip_rows_plan(n: int, length: int | None = None) -> Plan:
     """The strip row pass of an N x N map: one row a block as 4 layer
-    sequences of `length` points, N / length blocks a row (the split). The
-    kernels take length 2048 only; a shorter one models the split at small
-    N."""
+    sequences of `length` points (`strip_length(N)`), N / length blocks a
+    row (the split). The kernels take `strip_length(N)`; another length
+    models the split at small N."""
     return _strip_plan(n, length, False)
 
 
 @functools.lru_cache(maxsize=None)
-def strip_cols_plan(n: int, length: int = STRIP_LENGTH) -> Plan:
+def strip_cols_plan(n: int, length: int | None = None) -> Plan:
     """The strip column pass of an N x N map: one column a block as 4 layer
     sequences of `length` points, N / length blocks a column."""
     return _strip_plan(n, length, True)

@@ -4,10 +4,11 @@ Replaces `godotoceanwaves_tpu/ops/pallas_strip.py` `strip_cascade_step` (the
 Pallas kernels `_pass1_kernel` and `_pass2_kernel`). It takes the arguments
 of `fused_step.fused_cascade_step` and returns the same results. On a CUDA
 tensor it launches the kernel pair in `csrc/strip_step.cu`: K1's row and
-column passes (`csrc/step_passes.cuh`, on the Stockham core) at one
-transform length, 2048, with the launch plans of `fft_plan.strip_rows_plan`
-and `strip_cols_plan`; at 4096 and 8192, 2 or 4 blocks share each row and
-column, one per output parity (see the design note there). On a CPU tensor
+column passes (`csrc/step_passes.cuh`, on the Stockham core) with the
+launch plans of `fft_plan.strip_rows_plan` and `strip_cols_plan`: 2 blocks
+share each row and column at 2048 and 4096, 4 at 8192, one per output
+parity, each transforming `fft_plan.strip_length(N)` points (see the design
+note there). On a CPU tensor
 it runs the plain PyTorch version, the modulate -> `fft.ifft2_packed_planes`
 -> unpack chain.
 
@@ -51,8 +52,8 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rows, cols = fft_plan.strip_rows_plan(n), fft_plan.strip_cols_plan(n)
-        tw = fft_plan.twiddles(fft_plan.STRIP_LENGTH, dev)   # the 2048-point stages
-        twn = fft_plan.twiddles(n, dev)                      # the split's w_N^(e j)
+        tw = fft_plan.twiddles(rows.n, dev)   # the transform's stages
+        twn = fft_plan.twiddles(n, dev)       # the split's w_N^(e j)
         scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
         disp = torch.empty((c, 3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty((c, 4, n, n), dtype=map_dtype, device=dev)

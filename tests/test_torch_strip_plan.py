@@ -2,17 +2,17 @@
 of `csrc/step_passes.cuh`) run in NumPy on the CPU, through its global
 layouts, from `ops/fft_plan.py`'s strip plans.
 
-The kernels transform 2048 points a sequence at every N = 2048, 4096, 8192:
-S = N / 2048 blocks share each row (row pass) and each column (column
-pass), block e summing the line's S parts by quarter turns while it loads
-(`split_term`), multiplying by w_N^(e j) from the N-point table and
-transforming 2048 points into the outputs S k + e. The model is the fused
-step's (`tests/test_torch_fused_plan.py`) with that pre-stage; plans of a
-shorter transform length force S = 2 and 4 at small N, where the whole pair
-runs in float64 with exact tables and must equal the plain
-`strip_cascade_step_reference` to 1e-10 (float64 rounding). At the
-kernels' own sizes the first blocks of each pass give the bank and sector
-figures and are held against `numpy.fft`.
+The kernels split every N = 2048, 4096, 8192: S blocks share each row (row
+pass) and each column (column pass), S = 2, 2, 4, block e summing the
+line's S parts by quarter turns while it loads (`split_term`), multiplying
+by w_N^(e j) from the N-point table and transforming M = N / S points
+(`fft_plan.strip_length`: 1024, 2048, 2048) into the outputs S k + e. The
+model is the fused step's (`tests/test_torch_fused_plan.py`) with that
+pre-stage; plans of a shorter transform length force S = 2 and 4 at small
+N, where the whole pair runs in float64 with exact tables and must equal
+the plain `strip_cascade_step_reference` to 1e-10 (float64 rounding). At
+the kernels' own sizes the first blocks of each pass give the bank and
+sector figures and are held against `numpy.fft`.
 """
 import numpy as np
 import pytest
@@ -24,24 +24,25 @@ from test_torch_fft_plan import REGISTERS, SM_REGISTERS, SM_SMEM, exact_table, r
 from test_torch_fused_plan import (L, Trace, close, col_pass, inputs, model_addresses,
                                    model_frames, row_pass, whole_sectors)
 
-STRIP_SIZES = [2048, 4096, 8192]    # every N the strip kernels take
+STRIP_SIZES = list(fft_plan.STRIP_SIZES)    # every N the strip kernels take
 
 
-def plans(n, length=fft_plan.STRIP_LENGTH):
+def plans(n, length=None):
     return {"rows": fft_plan.strip_rows_plan(n, length),
             "cols": fft_plan.strip_cols_plan(n, length)}
 
 
 @pytest.mark.parametrize("n", STRIP_SIZES)
 def test_strip_plans_fit_the_card(n):
-    """Both plans: 4 layers of one line, 2048 points each, a block (512
-    threads), N / 2048 blocks a line; within 227 KB, two blocks an SM within
-    its registers (64 a thread) and shared memory; the pitch holds the
-    padded extent and the join buffer a whole sequence."""
+    """Both plans: 4 layers of one line a block (256 threads at 2048, 512
+    above), split 2 at 2048 and 4096 and 4 at 8192; within 227 KB, two
+    blocks an SM within its registers (64 a thread) and shared memory; the
+    pitch holds the padded extent and the join buffer a whole sequence."""
     for plan in plans(n).values():
-        assert plan.n == fft_plan.STRIP_LENGTH and plan.split == n // plan.n
+        assert plan.n == fft_plan.strip_length(n) == (1024 if n == 2048 else 2048)
+        assert plan.split == n // plan.n == {2048: 2, 4096: 2, 8192: 4}[n]
         assert plan.layers == L and plan.lines == 1 and plan.seqs == L
-        assert plan.threads == fft_plan.MAX_THREADS
+        assert plan.threads == L * plan.n // fft_plan.POINTS
         assert plan.smem_bytes <= fft_plan.SMEM_LIMIT and 2 * plan.smem_bytes <= SM_SMEM
         assert 2 * plan.threads * REGISTERS <= SM_REGISTERS
         assert plan.pitch >= fft_plan.extent(plan.n) and plan.join_pitch >= plan.n
@@ -71,15 +72,26 @@ def test_strip_scratch_moves_whole_sectors(n):
     assert whole_sectors(trace.scratch_stores, 4) and whole_sectors(trace.scratch_loads, 4)
 
 
+def sector_share(accesses, size):
+    """The least share of the bytes of its touched 32-byte sectors that a
+    warp access (elements of `size` bytes, in thread order) writes."""
+    per, least = 32 // size, 1.0
+    for access in accesses:
+        for warp in np.array_split(access, max(1, len(access) // 32)):
+            elems = np.unique(warp)
+            least = min(least, len(elems) / (len(np.unique(elems // per)) * per))
+    return least
+
+
 @pytest.mark.parametrize("size", [2, 4])
-def test_strip_map_stores_whole_sectors_at_2048_only(size):
-    """At 2048 each warp's map stores (2- or 4-byte elements of an output
-    row) cover whole 32-byte sectors; with the split, block e stores every
-    S-th element, so a warp's sectors are partly written."""
+def test_split_map_stores_write_a_share_of_their_sectors(size):
+    """Block e stores map columns S k + e, every S-th element of an output
+    row: each warp's map stores (2- or 4-byte elements) write 1 / S of the
+    bytes of the sectors they touch, which the card merges in L2."""
     for n in STRIP_SIZES:
         trace = Trace()
         model_addresses(plans(n), trace)
-        assert whole_sectors(trace.map_stores, size) == (n == fft_plan.STRIP_LENGTH)
+        assert sector_share(trace.map_stores, size) == 1 / plans(n)["cols"].split
 
 
 @pytest.mark.parametrize("n,length", [(64, 32), (64, 16), (128, 64), (128, 32), (256, 128),
@@ -139,3 +151,5 @@ def test_strip_plans_refuse_sizes_outside_the_kernel():
             fft_plan.strip_cols_plan(n)
     with pytest.raises(ValueError):
         fft_plan.strip_rows_plan(256, 32)     # a split of 8
+    with pytest.raises(ValueError):
+        fft_plan.strip_length(1024)
