@@ -276,18 +276,18 @@ def phase_toolchain(torch, build) -> str:
 def step_pass_registers(nvcc_log: str) -> dict:
     """ptxas's figures for each instantiation of the step passes
     (`csrc/step_passes.cuh`): {"K4 step_rows_kernel<11, 2>": (registers,
-    stack bytes, spill store + load bytes)}; K1 runs lengths 2^4..2^10,
-    K4 2^11."""
+    stack bytes, spill store + load bytes)}; K1 runs split 1, K4 splits 2
+    and 4."""
     import re
     dtypes = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
     out, name, stack, spills = {}, None, 0, 0
     for line in nvcc_log.splitlines():
         entry = re.search(r"Compiling entry function '\S*(step_(?:rows|cols)_kernel)ILi(\d+)ELi"
-                          r"(\d+)E(f|13__nv_bfloat16|6__half)?E", line)
+                          r"(\d+)E(?:Li\d+E)*(f|13__nv_bfloat16|6__half)?E", line)
         if entry:
             kernel, log2m, split, dtype = entry.groups()
             args = [log2m, split] + ([dtypes[dtype]] if dtype else [])
-            name = f"{'K4' if int(log2m) > 10 else 'K1'} {kernel}<{', '.join(args)}>"
+            name = f"{'K4' if int(split) > 1 else 'K1'} {kernel}<{', '.join(args)}>"
             continue
         frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
                           r"spill loads", line)
@@ -1420,7 +1420,7 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     counts = read_counts()
     check(counts == only(K4=2 * SHARD_PATCHES),
           f"a (8, 1) mesh step should be {SHARD_PATCHES} K4 steps, counted {counts}")
-    ms_81 = time_cuda(one_step_81, iters=5, warmup=1)
+    ms_81 = time_cuda(one_step_81, iters=5, warmup=2, repeats=5)
     del carry_81
     torch.cuda.empty_cache()
     out["step"] = {"ms_per_frame": step_ms, "host_ms_per_frame": host_ms,
@@ -1431,7 +1431,8 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
         f"the card: {step_ms:.4f} ms/frame (CUDA events, best of 3 x 5), host clock "
         f"{host_ms:.4f} over 5 steps ending in a synchronize; device time by span (torch.profiler), "
         f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f"; the same state on an (8, 1) mesh ({SHARD_PATCHES} K4 steps) {ms_81:.4f} ms; peak "
+        + f"; the same state on an (8, 1) mesh ({SHARD_PATCHES} K4 steps) {ms_81:.4f} ms (best of "
+        f"5 x 5); peak "
         f"{peak:.3f} GiB above the resident {base / 2 ** 30:.3f} GiB; card {card}")
     return out
 

@@ -102,8 +102,11 @@ __device__ __forceinline__ float2 unit_root(const float2* __restrict__ tw, int k
     return k < half ? w : make_float2(-w.x, -w.y);
 }
 
-template <int LOG2M, int SPLIT>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// MAX_THREADS and MIN_BLOCKS are the launch bounds: the default caps a
+// thread at 64 registers; the strip step's 256-thread row blocks at 2048
+// take 48, 5 blocks an SM.
+template <int LOG2M, int SPLIT, int MAX_THREADS = kMaxThreads, int MIN_BLOCKS = kMinBlocks>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
                  const float* __restrict__ omega, const float* __restrict__ scal,
                  const float2* __restrict__ tw, const float2* __restrict__ twn,

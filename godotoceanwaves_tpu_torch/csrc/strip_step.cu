@@ -51,16 +51,26 @@ int strip_log2m(int n) {
     }
 }
 
+// The row pass's launch bounds: at 2048, blocks of 256 threads capped at 48
+// registers, 5 an SM (4 bytes of spill), which measured faster than 4 at
+// 64; above, the default 512 threads and 2 blocks. The column pass keeps
+// the default (at 48 registers it spills ~100 bytes and slows down).
+template <int LOG2M>
+constexpr int kRowThreads = LOG2M == 10 ? 256 : kMaxThreads;
+template <int LOG2M>
+constexpr int kRowBlocks = LOG2M == 10 ? 5 : kMinBlocks;
+
 struct Rows {
     template <int LOG2M, int SPLIT>
     static int launch(const float* h0, const float* h0nc, const float* omega, const float* scal,
                       const float2* tw, const float2* twn, float* scratch, int c, int n,
                       int rows, int pitch, int jpitch, long long smem, cudaStream_t stream) {
-        if (int rc = allow_smem(step_rows_kernel<LOG2M, SPLIT>, smem)) return rc;
-        step_rows_kernel<LOG2M, SPLIT><<<dim3(n / rows * SPLIT, c),
-                                         (rows * kLayers) << Shape<LOG2M>::kLog2T, smem,
-                                         stream>>>(h0, h0nc, omega, scal, tw, twn, scratch, rows,
-                                                   pitch, jpitch, 0);
+        const auto kernel = step_rows_kernel<LOG2M, SPLIT, kRowThreads<LOG2M>, kRowBlocks<LOG2M>>;
+        const int threads = (rows * kLayers) << Shape<LOG2M>::kLog2T;
+        if (threads > kRowThreads<LOG2M>) return static_cast<int>(cudaErrorInvalidValue);
+        if (int rc = allow_smem(kernel, smem)) return rc;
+        kernel<<<dim3(n / rows * SPLIT, c), threads, smem, stream>>>(
+            h0, h0nc, omega, scal, tw, twn, scratch, rows, pitch, jpitch, 0);
         return static_cast<int>(cudaGetLastError());
     }
 };
