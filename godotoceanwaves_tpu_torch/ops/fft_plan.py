@@ -202,8 +202,9 @@ def strip_length(n: int) -> int:
 
 def _strip_plan(n: int, length: int | None, column_major: bool) -> Plan:
     length = strip_length(n) if length is None else length
-    if n & (n - 1) or length & (length - 1) or not MIN_N <= length <= 2048 \
-            or n % length or n // length not in STRIP_SPLITS:
+    if n & (n - 1) or length & (length - 1) or length < MIN_N \
+            or LAYERS * length // POINTS > MAX_THREADS or n % length \
+            or n // length not in STRIP_SPLITS:
         raise ValueError(f"no strip plan for N = {n} at transform length {length}")
     return _step_plan(length, STEP_THREADS, column_major, split=n // length)
 

@@ -17,7 +17,10 @@ buffer. In float64 with an exact table the result must equal the port's
 plain `fused_cascade_step_reference` to 1e-10 (float64 rounding); a wrong
 address would collide, read a NaN, or land a layer on the wrong texel.
 The same addresses give the bank conflicts of the join and the sectors of
-the global stores.
+the global stores. `row_pass` and `col_pass` take a plan with a split
+(`Plan.split`, the strip step's; `tests/test_torch_strip_plan.py`): the S
+blocks of a line sum its S parts while they load and take the outputs
+S k + e.
 """
 import numpy as np
 import pytest
