@@ -41,16 +41,6 @@
 
 namespace {
 
-// log2 of the transform length at N (ops/fft_plan.py strip_length), or -1.
-int strip_log2m(int n) {
-    switch (n) {
-        case 2048: return 10;
-        case 4096:
-        case 8192: return 11;
-        default: return -1;
-    }
-}
-
 // The row pass's launch bounds: at 2048, blocks of 256 threads capped at 48
 // registers, 5 an SM (4 bytes of spill), which measured faster than 4 at
 // 64; above, the default 512 threads and 2 blocks. The column pass keeps
@@ -64,10 +54,12 @@ struct Rows {
     template <int LOG2M, int SPLIT>
     static int launch(const float* h0, const float* h0nc, const float* omega, const float* scal,
                       const float2* tw, const float2* twn, float* scratch, int c, int n,
-                      int rows, int pitch, int jpitch, long long smem, cudaStream_t stream) {
+                      int rows, int pitch, int jpitch, cudaStream_t stream) {
         const auto kernel = step_rows_kernel<LOG2M, SPLIT, kRowThreads<LOG2M>, kRowBlocks<LOG2M>>;
         const int threads = (rows * kLayers) << Shape<LOG2M>::kLog2T;
-        if (threads > kRowThreads<LOG2M>) return static_cast<int>(cudaErrorInvalidValue);
+        const long long smem = step_smem(LOG2M, rows, pitch, jpitch, n);
+        if (smem < 0 || threads > kRowThreads<LOG2M>)
+            return static_cast<int>(cudaErrorInvalidValue);
         if (int rc = allow_smem(kernel, smem)) return rc;
         kernel<<<dim3(n / rows * SPLIT, c), threads, smem, stream>>>(
             h0, h0nc, omega, scal, tw, twn, scratch, rows, pitch, jpitch, 0);
@@ -81,8 +73,9 @@ struct Cols {
     static int launch(const float* scratch, const float* foam_in, const float* scal,
                       const float2* tw, const float2* twn, void* disp, void* normal,
                       float* foam_out, int c, int n, int cols, int pitch, int jpitch,
-                      long long disp_cstride, long long norm_cstride, long long smem,
-                      cudaStream_t stream) {
+                      long long disp_cstride, long long norm_cstride, cudaStream_t stream) {
+        const long long smem = step_smem(LOG2M, cols, pitch, jpitch, n);
+        if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
         if (int rc = allow_smem(step_cols_kernel<LOG2M, SPLIT, OutT>, smem)) return rc;
         step_cols_kernel<LOG2M, SPLIT, OutT><<<dim3(n / cols * SPLIT, c),
                                                (cols * kLayers) << Shape<LOG2M>::kLog2T, smem,
@@ -94,7 +87,8 @@ struct Cols {
     }
 };
 
-// Pass::launch<LOG2M, SPLIT>(args...) at the instantiation of N.
+// Pass::launch<LOG2M, SPLIT>(args...) at the instantiation of N: the
+// transform length of ops/fft_plan.py strip_length and its split.
 template <typename Pass, typename... Args>
 int of_size(int n, Args... args) {
     switch (n) {
@@ -119,14 +113,10 @@ extern "C" {
 int strip_step_rows(const float* h0, const float* h0nc, const float* omega, const float* scal,
                     const float* tw, const float* twn, float* scratch, int c, int n, int rows,
                     int pitch, int jpitch, void* stream) {
-    const int log2m = strip_log2m(n);
-    const long long smem = log2m < 0 ? -1 : step_smem(log2m, rows, pitch, jpitch, n);
-    if (c < 1 || c > 65535 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const auto* w = reinterpret_cast<const float2*>(tw);
-    const auto* wn = reinterpret_cast<const float2*>(twn);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return of_size<Rows>(n, h0, h0nc, omega, scal, w, wn, scratch, c, n, rows, pitch, jpitch,
-                         smem, s);
+    if (c < 1 || c > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return of_size<Rows>(n, h0, h0nc, omega, scal, reinterpret_cast<const float2*>(tw),
+                         reinterpret_cast<const float2*>(twn), scratch, c, n, rows, pitch, jpitch,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // Column pass + unpack + foam. `dtype`: 0 float32, 1 bfloat16, 2 float16.
@@ -138,9 +128,7 @@ int strip_step_cols(const float* scratch, const float* foam_in, const float* sca
                     const float* tw, const float* twn, void* disp, void* normal, float* foam_out,
                     int c, int n, int dtype, long long disp_cstride, long long norm_cstride,
                     int cols, int pitch, int jpitch, void* stream) {
-    const int log2m = strip_log2m(n);
-    const long long smem = log2m < 0 ? -1 : step_smem(log2m, cols, pitch, jpitch, n);
-    if (c < 1 || c > 65535 || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (c < 1 || c > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const auto* w = reinterpret_cast<const float2*>(tw);
     const auto* wn = reinterpret_cast<const float2*>(twn);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -148,15 +136,15 @@ int strip_step_cols(const float* scratch, const float* foam_in, const float* sca
         case 0:
             return of_size<Cols<float>>(n, scratch, foam_in, scal, w, wn, disp, normal, foam_out,
                                         c, n, cols, pitch, jpitch, disp_cstride, norm_cstride,
-                                        smem, s);
+                                        s);
         case 1:
             return of_size<Cols<__nv_bfloat16>>(n, scratch, foam_in, scal, w, wn, disp, normal,
                                                 foam_out, c, n, cols, pitch, jpitch,
-                                                disp_cstride, norm_cstride, smem, s);
+                                                disp_cstride, norm_cstride, s);
         case 2:
             return of_size<Cols<__half>>(n, scratch, foam_in, scal, w, wn, disp, normal,
                                          foam_out, c, n, cols, pitch, jpitch, disp_cstride,
-                                         norm_cstride, smem, s);
+                                         norm_cstride, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
