@@ -1420,7 +1420,7 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     counts = read_counts()
     check(counts == only(K4=2 * SHARD_PATCHES),
           f"a (8, 1) mesh step should be {SHARD_PATCHES} K4 steps, counted {counts}")
-    ms_81 = time_cuda(one_step_81, iters=5, warmup=2, repeats=5)
+    ms_81 = time_cuda(one_step_81, iters=5, warmup=1)
     del carry_81
     torch.cuda.empty_cache()
     out["step"] = {"ms_per_frame": step_ms, "host_ms_per_frame": host_ms,
@@ -1431,8 +1431,7 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
         f"the card: {step_ms:.4f} ms/frame (CUDA events, best of 3 x 5), host clock "
         f"{host_ms:.4f} over 5 steps ending in a synchronize; device time by span (torch.profiler), "
         f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-        + f"; the same state on an (8, 1) mesh ({SHARD_PATCHES} K4 steps) {ms_81:.4f} ms (best of "
-        f"5 x 5); peak "
+        + f"; the same state on an (8, 1) mesh ({SHARD_PATCHES} K4 steps) {ms_81:.4f} ms; peak "
         f"{peak:.3f} GiB above the resident {base / 2 ** 30:.3f} GiB; card {card}")
     return out
 

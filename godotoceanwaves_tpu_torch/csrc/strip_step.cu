@@ -42,9 +42,10 @@
 namespace {
 
 // The row pass's launch bounds: at 2048, blocks of 256 threads capped at 48
-// registers, 5 an SM (4 bytes of spill), which measured faster than 4 at
-// 64; above, the default 512 threads and 2 blocks. The column pass keeps
-// the default (at 48 registers it spills ~100 bytes and slows down).
+// registers, 5 an SM (68 bytes of spill stores and 100 of loads, ptxas),
+// which measured faster than 4 at 64; above, the default 512 threads and 2
+// blocks. The column pass keeps the default (at 48 registers it spills and
+// slows down).
 template <int LOG2M>
 constexpr int kRowThreads = LOG2M == 10 ? 256 : kMaxThreads;
 template <int LOG2M>

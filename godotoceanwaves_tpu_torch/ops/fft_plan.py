@@ -47,7 +47,6 @@ LAYERS = 4             # packed layers of the fused step (texel::kLayers)
 STEP_MAX_N = 1024      # the fused step's largest N
 STEP_THREADS = 256     # threads a fused-step block aims at, either pass
 STRIP_SIZES = (2048, 4096, 8192)   # the strip step's N
-STRIP_SPLITS = (1, 2, 4)   # blocks a line the pass bodies take (csrc/step_passes.cuh)
 
 
 def log2(n: int) -> int:
@@ -200,29 +199,21 @@ def strip_length(n: int) -> int:
     return 1024 if n == 2048 else 2048
 
 
-def _strip_plan(n: int, length: int | None, column_major: bool) -> Plan:
-    length = strip_length(n) if length is None else length
-    if n & (n - 1) or length & (length - 1) or length < MIN_N \
-            or LAYERS * length // POINTS > MAX_THREADS or n % length \
-            or n // length not in STRIP_SPLITS:
-        raise ValueError(f"no strip plan for N = {n} at transform length {length}")
-    return _step_plan(length, STEP_THREADS, column_major, split=n // length)
-
-
 @functools.lru_cache(maxsize=None)
-def strip_rows_plan(n: int, length: int | None = None) -> Plan:
+def strip_rows_plan(n: int) -> Plan:
     """The strip row pass of an N x N map: one row a block as 4 layer
-    sequences of `length` points (`strip_length(N)`), N / length blocks a
-    row (the split). The kernels take `strip_length(N)`; another length
-    models the split at small N."""
-    return _strip_plan(n, length, False)
+    sequences of `strip_length(N)` points, N / length blocks a row (the
+    split)."""
+    length = strip_length(n)
+    return _step_plan(length, STEP_THREADS, False, split=n // length)
 
 
 @functools.lru_cache(maxsize=None)
-def strip_cols_plan(n: int, length: int | None = None) -> Plan:
+def strip_cols_plan(n: int) -> Plan:
     """The strip column pass of an N x N map: one column a block as 4 layer
-    sequences of `length` points, N / length blocks a column."""
-    return _strip_plan(n, length, True)
+    sequences of `strip_length(N)` points, N / length blocks a column."""
+    length = strip_length(n)
+    return _step_plan(length, STEP_THREADS, True, split=n // length)
 
 
 _TWIDDLES: dict[tuple[int, str], torch.Tensor] = {}

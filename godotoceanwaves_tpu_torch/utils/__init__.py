@@ -1,7 +1,6 @@
 """Utilities: CUDA-event timing, the Godot RNG, JAX-package interchange, map
 streaming, the clipmap mesh; `fft_sweep`, run as a module, times the FFT
-kernels' launch plans on the card, and `strip_timing` the strip step (K4)
-of this checkout or another."""
+kernels' launch plans on the card."""
 from .clipmap import build_clipmap_numpy, snap_to_tile
 from .convert import (maps_from_numpy, params_from_numpy, sharded_state_from_numpy,
                       state_from_numpy, state_to_numpy)

@@ -8,8 +8,8 @@ line's S parts by quarter turns while it loads (`split_term`), multiplying
 by w_N^(e j) from the N-point table and transforming M = N / S points
 (`fft_plan.strip_length`: 1024, 2048, 2048) into the outputs S k + e. The
 model is the fused step's (`tests/test_torch_fused_plan.py`) with that
-pre-stage; plans of a shorter transform length force S = 2 and 4 at small
-N, where the whole pair runs in float64 with exact tables and must equal
+pre-stage; step plans of a shorter transform length force S = 2 and 4 at
+small N, where the whole pair runs in float64 with exact tables and must equal
 the plain `strip_cascade_step_reference` to 1e-10 (float64 rounding). At
 the kernels' own sizes the first blocks of each pass give the bank and
 sector figures and are held against `numpy.fft`.
@@ -27,9 +27,16 @@ from test_torch_fused_plan import (L, Trace, close, col_pass, inputs, model_addr
 STRIP_SIZES = list(fft_plan.STRIP_SIZES)    # every N the strip kernels take
 
 
-def plans(n, length=None):
-    return {"rows": fft_plan.strip_rows_plan(n, length),
-            "cols": fft_plan.strip_cols_plan(n, length)}
+def plans(n):
+    return {"rows": fft_plan.strip_rows_plan(n), "cols": fft_plan.strip_cols_plan(n)}
+
+
+def split_plans(n, length):
+    """The strip plans' form at a transform length the kernels do not take,
+    which forces the split S = n / length at small N."""
+    return {pass_: fft_plan._step_plan(length, fft_plan.STEP_THREADS, pass_ == "cols",
+                                       split=n // length)
+            for pass_ in ("rows", "cols")}
 
 
 @pytest.mark.parametrize("n", STRIP_SIZES)
@@ -101,7 +108,7 @@ def test_split_pair_equals_the_plain_step(n, length):
     and 4): one frame of 2 cascades through every block of both passes
     equals the plain version (float64 inputs and maps) to 1e-10 relative,
     and each foam texel is read and written by one thread."""
-    pair = plans(n, length)
+    pair = split_plans(n, length)
     assert pair["rows"].split == n // length
     args = inputs(n)
     trace = Trace()
@@ -149,7 +156,5 @@ def test_strip_plans_refuse_sizes_outside_the_kernel():
             fft_plan.strip_rows_plan(n)
         with pytest.raises(ValueError):
             fft_plan.strip_cols_plan(n)
-    with pytest.raises(ValueError):
-        fft_plan.strip_rows_plan(256, 32)     # a split of 8
     with pytest.raises(ValueError):
         fft_plan.strip_length(1024)
