@@ -44,10 +44,13 @@ and the CUDA toolkit. Phases, each of which raises on failure:
    the bound, ratio to torch.fft.ifft2).
 10. The LOD gradient-tap kernel (K5) against its plain version (the einsum
     taps): a random case (3 cascades at 1024^2, 4 levels, 16 bands whose
-    levels hold 0, the bicubic-blending coarse level and the skip value)
-    and the gradient of a real 640x360 frame (`_debug_stage="grad"`).
+    levels hold 0, the bicubic-blending coarse level and the skip value),
+    the gradient of a real 640x360 frame (`_debug_stage="grad"`), and the
+    arguments `gradient_lod_tap` receives in one 1280x720 native frame
+    (taken by a one-call wrapper around it).
 11. The heightfield-march kernel (K6) against its plain version: a G = 256
-    table from real maps and 640x360 rays, 32 steps and 2 refine rounds.
+    table from real maps and 640x360 and 1280x720 rays, 32 steps and 2
+    refine rounds.
 12. The render path at bench.py's render settings: `Ocean(map_size=1024,
     map_dtype="bfloat16")` with 3 default cascades, the "interactive" tier,
     environment on, and the three legs 640x360, 1280x720 at render_scale=2
@@ -56,8 +59,8 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     finite in [0, 1] with a plausible sky share, kernel route vs plain
     route, one frame per leg under `torch.cuda.set_sync_debug_mode("error")`.
 13. Render timing with CUDA events: ms/frame of the three legs, the
-    `_debug_stage` split at 640x360 and 720p native, K5 and K6 vs their
-    plain versions and K6 vs the fan march, peak device memory.
+    `_debug_stage` split at 640x360 and 720p native, K6 vs the fan march,
+    peak device memory.
 14. The rows DFT kernel (K3) against its plain version: the config-5 shard
     (16, 2, 1024, 2048), the 1024^2 shard at rows = 8 (16, 2, 128, 1024),
     and N = 16, 256, 8192 with R = 37 tail rows, both fold_sign values.
@@ -79,8 +82,10 @@ and the CUDA toolkit. Phases, each of which raises on failure:
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
-once) over the card's memory rate and the operations it does over the fp32
-rate (HBM_TBPS, FP32_TFLOPS), from this run's inputs. Prints a JSON line of
+once; for K5 the distinct texels its taps touch) over the card's memory
+rate and the operations it does over the fp32 rate (HBM_TBPS,
+FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
+kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
 the sharded step, the card's name and power limit, a JSON line of the
 kernels, then as its last line {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
@@ -148,6 +153,10 @@ TOL_TAP = 5e-5               # max abs, K5 vs plain (tests/test_pallas_tap.py:96
 TOL_FRAME = 1e-3             # mean |delta| of a frame, kernel vs plain route
 MARCH_FOUND = 0.999          # K6 vs plain: share of pixels whose `found` agrees
 TOL_MARCH = 1e-4             # K6 vs plain: relative lo/hi where both found
+TAP_FRAME = "1280x720 native"             # phases 10, 17: K5 on the arguments of this leg's frame
+MARCH_RAYS = ((640, 360), (1280, 720))    # phases 11, 17: K6's rays
+MARCH_RUN = dict(march_steps=32, refine_rounds=2)   # the interactive tier's march
+ALONE_CALLS, ALONE_REPEATS = 200, 5       # phase 17: back-to-back calls a repeat
 # phase 14: (L, R, N) of K3; the config-5 shard at rows = 2 comes first
 ROWS_SHAPES = ((16, 1024, 2048), (16, 128, 1024), (4, 37, 16), (4, 37, 256), (4, 37, 8192))
 SHARD_ROWS_MAIN = 8          # phase 15: config 4's shape on a (1, 8) mesh
@@ -889,6 +898,20 @@ def lod_random_case(torch, T, shading, dev):
     return pyr, scales, torch.stack([x, z], dim=-1), lev
 
 
+def captured_tap_args(torch, geometry, maps, scales, **kw) -> tuple:
+    """The arguments `gradient_lod_tap` receives in one frame, taken by a
+    one-call wrapper around it (the frame runs as usual)."""
+    from godotoceanwaves_tpu_torch.ops import tap
+    seen, real = [], tap.gradient_lod_tap
+    tap.gradient_lod_tap = lambda *args: seen.append(args) or real(*args)
+    try:
+        render(geometry, maps, scales, **kw)
+    finally:
+        tap.gradient_lod_tap = real
+    check(len(seen) == 1, f"the frame called gradient_lod_tap {len(seen)} times, not once")
+    return seen[0]
+
+
 def phase_tap_vs_plain(torch, T, dev, maps, scales) -> dict:
     from godotoceanwaves_tpu_torch.models import geometry, shading
     from godotoceanwaves_tpu_torch.ops import tap
@@ -913,7 +936,15 @@ def phase_tap_vs_plain(torch, T, dev, maps, scales) -> dict:
     log(f"[10] K5 real 640x360 frame gradient (_debug_stage='grad'), kernel route vs "
         f"tap_impl='einsum': max abs {e_real:.3e} (<= {TOL_TAP:g})")
     check(e_real <= TOL_TAP, "K5 disagrees with its plain version (real frame)")
-    return {"random": e_rand, "real": e_real, "args": args}
+    frame = captured_tap_args(torch, geometry, maps, scales, **RENDER_LEGS[TAP_FRAME])
+    e_frame = max_abs(tap.gradient_lod_tap(*frame), tap.gradient_lod_tap_reference(*frame))
+    pyr, _, xz, lev = frame
+    log(f"[10] K5 on the arguments of one {TAP_FRAME} frame ({xz.shape[0]} bands x "
+        f"{xz.shape[1]} px, {len(pyr)} {pyr[0].dtype} levels of {tuple(pyr[0].shape)}, level "
+        f"counts {torch.bincount(lev.reshape(-1).long(), minlength=len(pyr) + 1).tolist()}): "
+        f"max abs {e_frame:.3e} (<= {TOL_TAP:g})")
+    check(e_frame <= TOL_TAP, f"K5 disagrees with its plain version ({TAP_FRAME} frame)")
+    return {"random": e_rand, "real": max(e_real, e_frame), "args": args, "frame_args": frame}
 
 
 def march_case(torch, geometry, maps, scales, dev, width=640, height=360):
@@ -933,23 +964,27 @@ def march_case(torch, geometry, maps, scales, dev, width=640, height=360):
 def phase_march_vs_plain(torch, dev, maps, scales) -> dict:
     from godotoceanwaves_tpu_torch.models import geometry
     from godotoceanwaves_tpu_torch.ops import march
-    args = march_case(torch, geometry, maps, scales, dev)
-    before = march.LAUNCHES
-    found, lo, hi = march.march_heightfield(*args, march_steps=32, refine_rounds=2)
-    torch.cuda.synchronize()
-    check(march.LAUNCHES == before + 1, "march_heightfield did not launch the kernel")
-    wf, wlo, whi = march.march_heightfield_reference(*args, march_steps=32, refine_rounds=2)
-    agree = float((found == wf).float().mean())
-    both = found & wf
-    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max())
-    e_lo, e_hi = rel(lo, wlo), rel(hi, whi)
-    err = max(float((lo - wlo).abs()[both].max()), float((hi - whi).abs()[both].max()))
-    log(f"[11] K6 640x360 rays, G=256, 32 steps + 2 rounds: found agrees on {agree:.6f} "
-        f"(>= {MARCH_FOUND}); hit share {float(wf.float().mean()):.3f}; rel lo {e_lo:.3e}, "
-        f"hi {e_hi:.3e} (<= {TOL_MARCH:g}); max abs {err:.3e}")
-    check(agree >= MARCH_FOUND and e_lo <= TOL_MARCH and e_hi <= TOL_MARCH,
-          "K6 disagrees with its plain version")
-    return {"agree": agree, "max_abs": err, "args": args}
+    out = {"agree": 1.0, "max_abs": 0.0, "args": {}}
+    for w, h in MARCH_RAYS:
+        args = march_case(torch, geometry, maps, scales, dev, width=w, height=h)
+        before = march.LAUNCHES
+        found, lo, hi = march.march_heightfield(*args, **MARCH_RUN)
+        torch.cuda.synchronize()
+        check(march.LAUNCHES == before + 1, "march_heightfield did not launch the kernel")
+        wf, wlo, whi = march.march_heightfield_reference(*args, **MARCH_RUN)
+        agree = float((found == wf).float().mean())
+        both = found & wf
+        rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max())
+        e_lo, e_hi = rel(lo, wlo), rel(hi, whi)
+        err = max(float((lo - wlo).abs()[both].max()), float((hi - whi).abs()[both].max()))
+        log(f"[11] K6 {w}x{h} rays, G=256, 32 steps + 2 rounds: found agrees on {agree:.6f} "
+            f"(>= {MARCH_FOUND}); hit share {float(wf.float().mean()):.3f}; rel lo {e_lo:.3e}, "
+            f"hi {e_hi:.3e} (<= {TOL_MARCH:g}); max abs {err:.3e}")
+        check(agree >= MARCH_FOUND and e_lo <= TOL_MARCH and e_hi <= TOL_MARCH,
+              "K6 disagrees with its plain version")
+        out["agree"], out["max_abs"] = min(out["agree"], agree), max(out["max_abs"], err)
+        out["args"][f"{w}x{h}"] = args
+    return out
 
 
 def phase_render_path(torch, dev, ocean) -> dict:
@@ -1090,9 +1125,168 @@ def march_flops(torch, args, found, lo, steps: int, rounds: int) -> float:
     return 8.0 * float(torch.where(valid, samples, torch.zeros_like(samples)).sum())
 
 
-def phase_render_timing(torch, dev, maps, scales, tap_args, march_args, card: str) -> dict:
-    from godotoceanwaves_tpu_torch.models import geometry
+def tap_bytes(torch, pyramid, scales, xz, levels, out) -> int:
+    """The bytes K5's function must move for these inputs: each distinct
+    texel the taps touch (2x2, or 4x4 where the cubic blend engages, on the
+    band's level; none where the band skips the cascade) x 3 channels x the
+    levels' element size, plus the scales, xz, the band levels and the
+    output once. Texel indices from the plain version's `_wrap_taps`."""
+    from godotoceanwaves_tpu_torch.models import shading
+    nlev, res = len(pyramid), pyramid[0].shape[-1]
+    base = [0]
+    for p in pyramid:
+        base.append(base[-1] + p.shape[0] * p.shape[-1] ** 2)
+    ids = []
+    for b, row in enumerate(levels.cpu().tolist()):
+        for c, lev in enumerate(row):
+            if lev >= nlev:
+                continue
+            lev = max(lev, 0)
+            n, s = res >> lev, scales[c]
+            cubic = bool(torch.clamp_max(n * torch.minimum(s[0], s[1]) * 0.1, 1.0) < 1.0)
+            uv = xz[b] * s[:2]
+            ix = torch.stack([i for i, _ in shading._wrap_taps(uv[:, 0] * n - 0.5, n, cubic)])
+            iv = torch.stack([i for i, _ in shading._wrap_taps(uv[:, 1] * n - 0.5, n, cubic)])
+            ids.append((base[lev] + (c * n + iv[:, None]) * n + ix[None]).reshape(-1))
+    texels = int(torch.unique(torch.cat(ids)).numel()) if ids else 0
+    return texels * 3 * pyramid[0].element_size() + nbytes(scales, xz, levels, out)
+
+
+def device_profile(torch, call, name: str) -> tuple[list, list, list]:
+    """Per repeat of ALONE_CALLS back-to-back calls under torch.profiler
+    (device rows only): the device ms a call of the kernels whose name holds
+    `name`, the device ms a call of every device operation (kernels, copies,
+    fills), and the number of those operations a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    own, busy, ops = [], [], []
+    for _ in range(ALONE_REPEATS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(ALONE_CALLS):
+                call()
+            torch.cuda.synchronize()
+        us, total, count = 0.0, 0.0, 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            count += e.count
+            total += dev_us
+            if name in e.key:
+                us += dev_us
+        own.append(us / ALONE_CALLS / 1e3)
+        busy.append(total / ALONE_CALLS / 1e3)
+        ops.append(count / ALONE_CALLS)
+    return own, busy, ops
+
+
+def call_times(torch, call) -> list:
+    """Per repeat, CUDA events around ALONE_CALLS back-to-back calls: ms a
+    call, host and device together (whichever is slower sets it)."""
+    call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(ALONE_REPEATS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ALONE_CALLS):
+            call()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / ALONE_CALLS)
+    return out
+
+
+def spread(values: list) -> str:
+    v = sorted(values)
+    return f"{v[len(v) // 2]:.4f} (min {v[0]:.4f}, max {v[-1]:.4f}, {len(v)} repeats)"
+
+
+def time_alone(torch, tag: str, name: str, call, plain_ms: float, moved: float, flops: float,
+               card: str) -> dict:
+    """One kernel's block of timings: kernel-only device time and device
+    operations a call (torch.profiler), the whole wrapper call (CUDA
+    events), beside the bound and the plain version's time."""
+    own, busy, ops = device_profile(torch, call, name)
+    whole = call_times(torch, call)
+    bnd = bound(moved, flops)
+    med = lambda v: sorted(v)[len(v) // 2]
+    log(f"[17] {tag}: kernel {spread(own)} ms ({bnd[0] / med(own):.1%} of its bound "
+        f"{bnd[0]:.4f} ({bnd[1]}), {moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); every device "
+        f"operation of a call {spread(busy)} ms, {max(ops):g} operations a call; whole call "
+        f"{spread(whole)} ms; plain {plain_ms:.4f} ms (timed once); card {card}")
+    return {"ms": med(own), "device_ms": med(busy), "call_ms": med(whole), "ms_all": own,
+            "call_ms_all": whole, "ops_per_call": max(ops), "plain_ms": plain_ms, "bound": bnd}
+
+
+def variants(torch, module, call, tag: str):
+    """(form's name, setter) for each form of `module`'s kernel under
+    measurement (`VARIANTS`), each checked equal to the first form's output."""
+    forms = getattr(module, "VARIANTS", None)
+    if not forms:
+        return [("", lambda: None)]
+    module.VARIANT = next(iter(forms))
+    ref = call()
+    out = []
+    for v, label in forms.items():
+        module.VARIANT = v
+        got = call()
+        got, want = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{tag}: form {label!r} differs from form {forms[next(iter(forms))]!r}")
+        out.append((f" [{label}]", lambda v=v: setattr(module, "VARIANT", v)))
+    return out
+
+
+def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
+    """K5 and K6 alone, each in its own block: K5 on the random case and on
+    the arguments of one TAP_FRAME frame, K6 on MARCH_RAYS rays."""
     from godotoceanwaves_tpu_torch.ops import march, tap
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    once = lambda fn: time_cuda(fn, iters=1, warmup=1, repeats=1)
+    out = {}
+    for case, args in (("random", tap_res["args"]), ("frame", tap_res["frame_args"])):
+        pyr, scales, xz, lev = args
+        call = lambda: tap.gradient_lod_tap(*args)
+        moved = tap_bytes(torch, pyr, scales, xz, lev, call())
+        plain_ms = once(lambda: tap.gradient_lod_tap_reference(*args))
+        for label, use in variants(torch, tap, call, f"K5 {case}"):
+            use()
+            tag = (f"K5 {case}{label} ({xz.shape[0]} bands x {xz.shape[1]} px, {len(pyr)} "
+                   f"{pyr[0].dtype} levels of {tuple(pyr[0].shape)})")
+            out[f"K5 {case}{label}"] = time_alone(torch, tag, "lod_tap_kernel", call, plain_ms,
+                                                  moved, tap_flops(*args), card)
+    for size, args in march_res["args"].items():
+        call = lambda: march.march_heightfield(*args, **MARCH_RUN)
+        found, lo, hi = call()
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        moved = nbytes(*tensors, found, lo, hi)
+        flops = march_flops(torch, args, found, lo, MARCH_RUN["march_steps"],
+                            MARCH_RUN["refine_rounds"])
+        plain_ms = once(lambda: march.march_heightfield_reference(*args, **MARCH_RUN))
+        for label, use in variants(torch, march, call, f"K6 {size}"):
+            use()
+            out[f"K6 {size}{label}"] = time_alone(
+                torch, f"K6 {size}{label} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds",
+                "march_kernel", call, plain_ms, moved, flops, card)
+    return out
+
+
+def alone_entry(res: dict, suffix: str = "") -> dict:
+    """A kernels-line entry's timing keys from `time_alone`: kernel-only ms,
+    the whole call, the plain version, the bound."""
+    return {f"ms{suffix}": res["ms"], f"call_ms{suffix}": res["call_ms"],
+            f"plain_ms{suffix}": res["plain_ms"], f"bound_ms{suffix}": res["bound"][0],
+            f"bound_by{suffix}": res["bound"][1], f"device_ops_per_call{suffix}": res["ops_per_call"]}
+
+
+def phase_render_timing(torch, dev, maps, scales, card: str) -> dict:
+    from godotoceanwaves_tpu_torch.models import geometry
     from godotoceanwaves_tpu_torch.utils.timing import time_cuda
     cam0 = torch.tensor(CAM0, device=dev)
     out = {}
@@ -1144,27 +1338,6 @@ def phase_render_timing(torch, dev, maps, scales, tap_args, march_args, card: st
     log(f"[13] 640x360 march stage (rays + tables + march), ms: fan {marches['fan']:.3f}, "
         f"K6 (pallas) {marches['pallas']:.3f}, xla bracket {marches['xla']:.3f}; card {card}")
 
-    k5, k5_plain, t = turns(time_cuda, lambda: tap.gradient_lod_tap_reference(*tap_args),
-                            lambda: tap.gradient_lod_tap(*tap_args), iters=3)
-    out["K5"] = (k5, k5_plain)
-    pyr, tap_scales, xz, lev = tap_args
-    out["K5_bound"] = bound(nbytes(*pyr, tap_scales, xz, lev, tap.gradient_lod_tap(*tap_args)),
-                            tap_flops(*tap_args))
-    log(f"[13] K5 (16 bands x 14720 px, 3 x 1024^2, 4 levels): kernel {k5:.4f} ms, plain "
-        f"{k5_plain:.4f} ms, bound {out['K5_bound'][0]:.4f} ({out['K5_bound'][1]}); "
-        f"turns {[round(v, 4) for v in t]}; card {card}")
-    run = dict(march_steps=32, refine_rounds=2)
-    k6, k6_plain, t = turns(time_cuda, lambda: march.march_heightfield_reference(*march_args, **run),
-                            lambda: march.march_heightfield(*march_args, **run), iters=10)
-    out["K6"] = (k6, k6_plain)
-    found, lo, hi = march.march_heightfield(*march_args, **run)
-    tensors = [a for a in march_args if isinstance(a, torch.Tensor)]
-    out["K6_bound"] = bound(nbytes(*tensors, found, lo, hi),
-                            march_flops(torch, march_args, found, lo, run["march_steps"],
-                                        run["refine_rounds"]))
-    log(f"[13] K6 (640x360 rays, G=256, 32 steps + 2 rounds): kernel {k6:.4f} ms, plain "
-        f"{k6_plain:.4f} ms, bound {out['K6_bound'][0]:.4f} ({out['K6_bound'][1]}); "
-        f"turns {[round(v, 4) for v in t]}; card {card}")
     return out
 
 
@@ -1436,7 +1609,7 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1451,6 +1624,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     card = phase_toolchain(torch, _build)
+    if argv == ["--alone"]:
+        # phases 10, 11 and 17 only: K5 and K6 against their plain versions, then alone
+        ocean = T.Ocean(map_size=RENDER_MAP, map_dtype="bfloat16", updates_per_second=0,
+                        device=dev)
+        maps0 = ocean.update(1 / 60)
+        tap_res = phase_tap_vs_plain(torch, T, dev, maps0, ocean.params.map_scales())
+        march_res = phase_march_vs_plain(torch, dev, maps0, ocean.params.map_scales())
+        alone = phase_kernels_alone(torch, tap_res, march_res, card)
+        log(json.dumps({"alone": {k: {key: v[key] for key in ("ms", "device_ms", "call_ms",
+                                                               "ops_per_call", "plain_ms", "bound")}
+                                  for k, v in alone.items()}}))
+        log(card_line())
+        return 0
+    if argv:
+        print(f"usage: {sys.argv[0]} [--alone]", file=sys.stderr)
+        return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
     k1_launches = phase_main_path(torch, T, fs, dev)
@@ -1464,14 +1653,17 @@ def main() -> int:
     tap_res = phase_tap_vs_plain(torch, T, dev, maps0, ocean.params.map_scales())
     march_res = phase_march_vs_plain(torch, dev, maps0, ocean.params.map_scales())
     path = phase_render_path(torch, dev, ocean)
-    rtime = phase_render_timing(torch, dev, path["maps"], path["scales"], tap_res["args"],
-                                march_res["args"], card)
+    phase_render_timing(torch, dev, path["maps"], path["scales"], card)
     del ocean, maps0, path["maps"]
     torch.cuda.empty_cache()
     rows_errs = phase_rows_vs_plain(torch, rf, fft, dev)
     shard4 = phase_sharded_main(torch, T, par, dev)
     shard5 = phase_sharded_config5(torch, T, par, dev)
     stime = phase_sharded_timing(torch, par, rf, fft, dev, shard5, card)
+    alone = phase_kernels_alone(torch, tap_res, march_res, card)
+    for key, res in alone.items():
+        check(res["ops_per_call"] == 1,
+              f"{key}: a wrapper call ran {res['ops_per_call']} device operations, not one kernel")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -1515,13 +1707,14 @@ def main() -> int:
              **{f"bound_ms_1x{n}": timing[("K4", n)][3][0] for n in STRIP_BIG}),
         dict(KERNELS["K5"], route="cuda", launches=path["launches_K5"],
              max_abs_err=max(tap_res["random"], tap_res["real"]),
-             max_abs_err_real_frame=tap_res["real"], ms=rtime["K5"][0], plain_ms=rtime["K5"][1],
-             **bounds(rtime["K5_bound"]), library_ms=None,
-             shape=f"16 bands x 14720 px, 3 x {RENDER_MAP}^2 bf16 pyramid, 4 levels"),
+             max_abs_err_real_frame=tap_res["real"], **alone_entry(alone["K5 frame"]),
+             library_ms=None, shape=f"the arguments of one {TAP_FRAME} frame",
+             **alone_entry(alone["K5 random"], "_random")),
         dict(KERNELS["K6"], route="cuda", launches=path["launches_K6"],
              max_abs_err=march_res["max_abs"], found_agree=march_res["agree"],
-             ms=rtime["K6"][0], plain_ms=rtime["K6"][1], **bounds(rtime["K6_bound"]),
-             library_ms=None, shape="640x360 rays, G = 256 table, 32 steps + 2 refine rounds"),
+             **alone_entry(alone["K6 640x360"]), library_ms=None,
+             shape="640x360 rays, G = 256 table, 32 steps + 2 refine rounds",
+             **alone_entry(alone["K6 1280x720"], "_1280x720")),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1530,4 +1723,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

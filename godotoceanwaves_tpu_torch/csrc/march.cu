@@ -5,60 +5,128 @@
 // kernel held the table in VMEM and built dense hat-weight rows for an MXU
 // product per sample; here each sample reads its 2 x 2 texels.
 //
+// The kernel takes the wrapper's inputs as they come: rays (P, 3), the march
+// window t0, t1, the valid mask (bool bytes), the camera (3,), the grid
+// centre (2,), and the table in fp32 or bf16 (each texel rounded to bf16 as
+// it is read). It folds the geometry into per-pixel linear forms with the
+// fp32 operations of ops/march.py _lanes (pallas_march.py:138-148):
+//   fx(t) = ax + t bx, ax = (cam_x - centre_x - origin) * inv_cell, bx = dir_x * inv_cell
+//   (z alike), below(t) = cam_y + t dir_y < h(fx(t), fz(t)).
+//
 // Per pixel: b0 = below(t0) (camera under a crest: bracket (t0, t0 + seg));
 // else the first of march_steps samples t = t0 + (k + 1) seg below the
 // surface brackets (t - seg, t]; then refine_rounds rounds of 8 samples
-// inside the bracket. A round stops at its first crossing: later samples
-// cannot change the first one. The numbers follow the TPU kernel: bf16
+// inside the bracket. Samples run in groups of 8: a group issues the texel
+// loads of all its samples before any compare, takes its first crossing,
+// and the round stops between groups. Later samples cannot change the first
+// crossing, so this is the serial march's result bit for bit, as the TPU
+// kernel's (pallas_march.py:76-88). The numbers follow the TPU kernel: bf16
 // table, z hat weights rounded to bf16 (pallas_march.py:69), x hat weights
-// kept fp32 (:73), fp32 sums; fx = ax + t bx with no contraction (built with
-// -fmad=false, ops/_build.py).
+// kept fp32 (:73), fp32 sums; no contraction (built with -fmad=false,
+// ops/_build.py).
 //
 // What bounds it: the table reads, 4 texels a sample (a 256^2 bf16 table is
 // 128 KB and stays in L1/L2) and ~56 samples a pixel at the interactive
 // settings; 21 bytes in and 9 out per pixel.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kThreads = 256;
+
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+__device__ __forceinline__ float texel(const float* p) { return bf16_round(__ldg(p)); }
+__device__ __forceinline__ float texel(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+
+// The table by its element strides (a (G, G, 3)[..., 1] slice is read in
+// place), texel (i, j) at p[i * row + j * col].
+template <typename T>
+struct Table {
+    const T* p;
+    int64_t row, col;
+    __device__ __forceinline__ float operator()(int i, int j) const {
+        return texel(p + i * row + j * col);
+    }
+};
+
+// The launch's compact bf16 copy of the table, written in the same launch
+// (so read by plain loads, not the read-only path).
+struct Compact {
+    const __nv_bfloat16* p;
+    int g;
+    __device__ __forceinline__ float operator()(int i, int j) const {
+        return __bfloat162float(p[i * g + j]);
+    }
+};
 
 struct Ray {
     float ax, az, cy, bx, bz, dy;
 };
 
-__device__ __forceinline__ bool below(const __nv_bfloat16* __restrict__ tab, int g,
-                                      float hi_cap, const Ray& r, float t) {
-    const float fx = fminf(fmaxf(r.ax + t * r.bx, 0.0f), hi_cap);
-    const float fz = fminf(fmaxf(r.az + t * r.bz, 0.0f), hi_cap);
-    const int i = (int)fz;                 // fz >= 0: truncation is floor
-    const int j = (int)fx;
-    const float wz0 = bf16_round(fmaxf(0.0f, 1.0f - fabsf(fz - (float)i)));
-    const float wz1 = bf16_round(fmaxf(0.0f, 1.0f - fabsf(fz - (float)(i + 1))));
-    const float wx0 = fmaxf(0.0f, 1.0f - fabsf(fx - (float)j));
-    const float wx1 = fmaxf(0.0f, 1.0f - fabsf(fx - (float)(j + 1)));
-    const __nv_bfloat16* p0 = tab + (int64_t)i * g + j;
-    const __nv_bfloat16* p1 = p0 + g;
-    const float r0 = wz0 * __bfloat162float(__ldg(p0)) + wz1 * __bfloat162float(__ldg(p1));
-    const float r1 = wz0 * __bfloat162float(__ldg(p0 + 1)) + wz1 * __bfloat162float(__ldg(p1 + 1));
-    return (r.cy + t * r.dy) < r0 * wx0 + r1 * wx1;
+// One sample at t: its table coordinates and its 2 x 2 texels, loaded.
+struct Sample {
+    float t, fx, fz, h[4];
+};
+
+template <typename Tab>
+__device__ __forceinline__ Sample load(const Tab& tab, float hi_cap, const Ray& r, float t) {
+    Sample s;
+    s.t = t;
+    s.fx = fminf(fmaxf(r.ax + t * r.bx, 0.0f), hi_cap);
+    s.fz = fminf(fmaxf(r.az + t * r.bz, 0.0f), hi_cap);
+    const int i = (int)s.fz, j = (int)s.fx;     // fz, fx >= 0: truncation is floor
+    s.h[0] = tab(i, j);
+    s.h[1] = tab(i + 1, j);
+    s.h[2] = tab(i, j + 1);
+    s.h[3] = tab(i + 1, j + 1);
+    return s;
 }
 
-// First below-surface crossing among m samples of (lo, hi]; the bracket is
-// updated in place when one is found.
-__device__ __forceinline__ bool run_round(const __nv_bfloat16* __restrict__ tab, int g,
-                                          float hi_cap, const Ray& r, float& lo, float& hi,
-                                          int m, float inv_m, bool ok) {
+__device__ __forceinline__ bool below(const Sample& s, const Ray& r) {
+    const int i = (int)s.fz, j = (int)s.fx;
+    const float wz0 = bf16_round(fmaxf(0.0f, 1.0f - fabsf(s.fz - (float)i)));
+    const float wz1 = bf16_round(fmaxf(0.0f, 1.0f - fabsf(s.fz - (float)(i + 1))));
+    const float wx0 = fmaxf(0.0f, 1.0f - fabsf(s.fx - (float)j));
+    const float wx1 = fmaxf(0.0f, 1.0f - fabsf(s.fx - (float)(j + 1)));
+    const float r0 = wz0 * s.h[0] + wz1 * s.h[1];
+    const float r1 = wz0 * s.h[2] + wz1 * s.h[3];
+    return (r.cy + s.t * r.dy) < r0 * wx0 + r1 * wx1;
+}
+
+// The first crossing among samples k0 + 1 .. k0 + GROUP (of m) at
+// t = lo + k seg, every load issued before the first compare: its index
+// within the group, or GROUP.
+template <int GROUP, typename Tab>
+__device__ __forceinline__ int group_first(const Tab& tab, float hi_cap, const Ray& r, float lo,
+                                           float seg, int k0, int m) {
+    Sample s[GROUP];
+#pragma unroll
+    for (int q = 0; q < GROUP; ++q) s[q] = load(tab, hi_cap, r, lo + (float)(k0 + q + 1) * seg);
+    int first = GROUP;
+#pragma unroll
+    for (int q = GROUP - 1; q >= 0; --q)
+        if (k0 + q < m && below(s[q], r)) first = q;
+    return first;
+}
+
+// The first below-surface crossing among m samples of (lo, hi]; the bracket
+// is updated in place when one is found.
+template <int GROUP, typename Tab>
+__device__ __forceinline__ bool run_round(const Tab& tab, float hi_cap, const Ray& r, float& lo,
+                                          float& hi, int m, float inv_m, bool ok) {
     const float seg = (hi - lo) * inv_m;
     if (!ok) return false;
-    for (int k = 0; k < m; ++k) {
-        const float t = lo + (float)(k + 1) * seg;
-        if (below(tab, g, hi_cap, r, t)) {
+    for (int k0 = 0; k0 < m; k0 += GROUP) {
+        const int q = group_first<GROUP>(tab, hi_cap, r, lo, seg, k0, m);
+        if (q < GROUP) {
+            const float t = lo + (float)(k0 + q + 1) * seg;
             lo = t - seg;
             hi = t;
             return true;
@@ -67,47 +135,115 @@ __device__ __forceinline__ bool run_round(const __nv_bfloat16* __restrict__ tab,
     return false;
 }
 
-__global__ void __launch_bounds__(256) march_kernel(
-        const __nv_bfloat16* __restrict__ tab, const float* __restrict__ bx,
-        const float* __restrict__ bz, const float* __restrict__ dy,
-        const float* __restrict__ t0, const float* __restrict__ t1,
-        const uint8_t* __restrict__ valid, const float* __restrict__ scal,
-        uint8_t* __restrict__ found_out, float* __restrict__ lo_out, float* __restrict__ hi_out,
-        int pixels, int g, int steps, float inv_steps, int rounds) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= pixels) return;
-    const Ray r{scal[0], scal[1], scal[2], bx[p], bz[p], dy[p]};
-    const float hi_cap = (float)g - 1.001f;
-    const float a = t0[p], b = t1[p];
-    const bool v = valid[p] != 0;
-    const bool b0 = v && below(tab, g, hi_cap, r, a);
-    float lo = a, hi = b;
-    bool found = run_round(tab, g, hi_cap, r, lo, hi, steps, inv_steps, v && !b0);
+struct Args {
+    const float *dirs, *t0, *t1, *cam, *center;
+    const uint8_t* valid;
+    uint8_t* found;
+    float *lo, *hi;
+    float org, inv_cell, inv_steps;
+    int pixels, g, steps, rounds;
+};
+
+template <int GROUP, typename Tab>
+__device__ __forceinline__ void march_pixel(const Tab& tab, const Args& a, int p) {
+    const float* d = a.dirs + (int64_t)3 * p;
+    const Ray r{(a.cam[0] - a.center[0] - a.org) * a.inv_cell,
+                (a.cam[2] - a.center[1] - a.org) * a.inv_cell, a.cam[1],
+                d[0] * a.inv_cell, d[2] * a.inv_cell, d[1]};
+    const float hi_cap = (float)a.g - 1.001f;
+    const float t0 = a.t0[p], t1 = a.t1[p];
+    const bool v = a.valid[p] != 0;
+    const bool b0 = v && below(load(tab, hi_cap, r, t0), r);
+    float lo = t0, hi = t1;
+    bool found = run_round<GROUP>(tab, hi_cap, r, lo, hi, a.steps, a.inv_steps, v && !b0);
     if (b0) {
-        lo = a;
-        hi = a + (b - a) * inv_steps;
+        lo = t0;
+        hi = t0 + (t1 - t0) * a.inv_steps;
         found = true;
     }
-    for (int k = 0; k < rounds; ++k)
-        run_round(tab, g, hi_cap, r, lo, hi, 8, 0.125f, found);
-    found_out[p] = found ? 1 : 0;
-    lo_out[p] = lo;
-    hi_out[p] = hi;
+    for (int k = 0; k < a.rounds; ++k)
+        run_round<GROUP>(tab, hi_cap, r, lo, hi, 8, 0.125f, found);
+    a.found[p] = found ? 1 : 0;
+    a.lo[p] = lo;
+    a.hi[p] = hi;
+}
+
+// One thread a pixel, texels read in place through L1.
+template <typename T, int GROUP>
+__global__ void __launch_bounds__(kThreads) march_kernel(Table<T> tab, Args a) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p < a.pixels) march_pixel<GROUP>(tab, a, p);
+}
+
+// A cooperative grid of resident blocks: the table copied once into a
+// compact bf16 table (G^2 x 2 bytes, L1-resident), a grid-wide barrier, then
+// the pixels, a thread a pixel in turn.
+template <typename T, int GROUP>
+__global__ void __launch_bounds__(kThreads) march_compact_kernel(Table<T> src,
+                                                                 __nv_bfloat16* compact, Args a) {
+    const int texels = a.g * a.g, stride = gridDim.x * kThreads;
+    for (int k = blockIdx.x * kThreads + threadIdx.x; k < texels; k += stride)
+        compact[k] = __float2bfloat16_rn(src(k / a.g, k % a.g));
+    cooperative_groups::this_grid().sync();
+    const Compact tab{compact, a.g};
+    for (int p = blockIdx.x * kThreads + threadIdx.x; p < a.pixels; p += stride)
+        march_pixel<GROUP>(tab, a, p);
+}
+
+template <typename T, int GROUP>
+cudaError_t launch(Table<T> tab, __nv_bfloat16* compact, Args a, int variant,
+                   cudaStream_t stream) {
+    if (variant >= 3) {
+        march_kernel<T, GROUP><<<(a.pixels + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+            tab, a);
+        return cudaGetLastError();
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, march_compact_kernel<T, GROUP>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    const int64_t work = a.pixels > a.g * a.g ? a.pixels : a.g * a.g;
+    const int64_t want = (work + kThreads - 1) / kThreads;
+    const int blocks = (int)(want < (int64_t)sms * per_sm ? want : (int64_t)sms * per_sm);
+    void* args[] = {&tab, &compact, &a};
+    err = cudaLaunchCooperativeKernel((const void*)march_compact_kernel<T, GROUP>, blocks,
+                                      kThreads, args, 0, stream);
+    return err == cudaSuccess ? cudaGetLastError() : err;
+}
+
+template <typename T>
+cudaError_t launch_variant(Table<T> tab, __nv_bfloat16* compact, const Args& a, int variant,
+                           cudaStream_t st) {
+    switch (variant) {
+        case 1: return launch<T, 4>(tab, compact, a, variant, st);
+        case 2: case 4: return launch<T, 8>(tab, compact, a, variant, st);
+        default: return launch<T, 1>(tab, compact, a, variant, st);
+    }
 }
 
 }  // namespace
 
-extern "C" int march_heightfield(const void* table, const void* bx, const void* bz,
-                                 const void* dy, const void* t0, const void* t1,
-                                 const void* valid, const void* scal, void* found, void* lo,
-                                 void* hi, int pixels, int g, int steps, float inv_steps,
-                                 int rounds, void* stream) {
+// table (G, G) by its element strides, bf16 != 0: bf16, else fp32; compact
+// G^2 bf16 scratch; dirs (P, 3), t0, t1 (P,) fp32 and valid (P,) bytes
+// contiguous; cam (3,), center (2,) fp32; found (P,) bytes (a torch.bool
+// tensor), lo, hi (P,) fp32.
+extern "C" int march_heightfield(const void* table, int bf16, long long row, long long col,
+                                 void* compact, const void* dirs, const void* t0, const void* t1,
+                                 const void* valid, const void* cam, const void* center,
+                                 float org, float inv_cell, void* found, void* lo, void* hi,
+                                 int pixels, int g, int steps, float inv_steps, int rounds,
+                                 int variant, void* stream) {
     if (pixels == 0) return 0;
-    const int threads = 256;
-    const int blocks = (pixels + threads - 1) / threads;
-    march_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)table, (const float*)bx, (const float*)bz, (const float*)dy,
-        (const float*)t0, (const float*)t1, (const uint8_t*)valid, (const float*)scal,
-        (uint8_t*)found, (float*)lo, (float*)hi, pixels, g, steps, inv_steps, rounds);
-    return (int)cudaGetLastError();
+    const Args a{(const float*)dirs, (const float*)t0, (const float*)t1, (const float*)cam,
+                 (const float*)center, (const uint8_t*)valid, (uint8_t*)found, (float*)lo,
+                 (float*)hi, org, inv_cell, inv_steps, pixels, g, steps, rounds};
+    const auto st = (cudaStream_t)stream;
+    auto* c = (__nv_bfloat16*)compact;
+    return (int)(bf16 ? launch_variant(Table<__nv_bfloat16>{(const __nv_bfloat16*)table, row, col},
+                                       c, a, variant, st)
+                      : launch_variant(Table<float>{(const float*)table, row, col}, c, a, variant,
+                                       st));
 }

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     # fused_step_rows(h0, h0nc, omega, scal, tw, scratch, c, n, frame, rows, pitch, jpitch,
     #                 stream)
@@ -47,11 +48,14 @@ _SIGNATURES = {
     "planes_fft_cols": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # rows_fft(x, out, tw, l, r, n, fold_sign, seqs, pitch, tile, stream)
     "rows_fft": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # lod_tap(pyr, scales, xz, levels, out, bands, pixels, cascades, res, nlev, stream)
-    "lod_tap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # march_heightfield(table, bx, bz, dy, t0, t1, valid, scal, found, lo, hi,
-    #                   pixels, g, steps, inv_steps, rounds, stream)
-    "march_heightfield": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # lod_tap(levels_ptrs, nlev, bf16, scales, xz, xz_band, xz_pixel, xz_comp, band_levels,
+    #         out, bands, pixels, cascades, res, stream)
+    "lod_tap": (_PP, _I, _I, _P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
+    # march_heightfield(table, bf16, row, col, compact, dirs, t0, t1, valid, cam, center, org,
+    #                   inv_cell, found, lo, hi, pixels, g, steps, inv_steps, rounds, variant,
+    #                   stream)
+    "march_heightfield": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I,
+                          _I, _I, _F, _I, _I, _P),
 }
 
 

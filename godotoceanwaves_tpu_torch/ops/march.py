@@ -13,13 +13,17 @@ both), fp32 sums. Geometry is folded into per-pixel linear forms:
                                       bx = dir_x / cell       (same for z)
     below(t)          = cam_y + t * dir_y < h(fx(t), fz(t))
 
-On a CUDA tensor `march_heightfield` launches `csrc/march.cu`: one thread
-marches one pixel and stops a round at its first crossing (the samples after
-it cannot change the result). On a CPU tensor it runs the plain version,
-a vectorised transliteration of `_march_kernel`. The kernel is bound by its
-table reads: a 256^2 bf16 table is 128 KB and stays in L1/L2, and each
-sample reads 4 texels; per pixel 5 floats and a byte come in, a byte and 2
-floats go out.
+On a CUDA tensor `march_heightfield` is one launch of `csrc/march.cu`: the
+kernel takes the rays, window, mask, camera, centre and table as they come
+(fp32 or bf16 table), forms the linear forms with `_lanes`'s fp32
+operations, and writes `found` straight into a bool tensor. One thread
+marches one pixel in groups of 8 samples, every load of a group issued
+before its first compare, and stops a round between groups at its first
+crossing (the samples after it cannot change the result). On a CPU tensor
+it runs the plain version, a vectorised transliteration of `_march_kernel`.
+The kernel is bound by its table reads: a 256^2 bf16 table is 128 KB and
+stays in L1/L2, and each sample reads 4 texels; per pixel 5 floats and a
+byte come in, a byte and 2 floats go out.
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ import torch
 
 # Kernel launches since the last reset.
 LAUNCHES = 0
+# csrc/march.cu's forms under measurement: (samples a group, blocks an SM)
+VARIANTS = {0: "compact, group 1", 1: "compact, group 4", 2: "compact, group 8",
+            3: "in place, group 1", 4: "in place, group 8"}
+VARIANT = 0
 
 
 def _f32(x: float) -> float:
@@ -79,28 +87,34 @@ def march_reference(table16, bx, bz, dy, t0, t1, valid, ax, az, cy, *,
     return found, lo, hi
 
 
-def _launch(table16, bx, bz, dy, t0, t1, valid, scal, *, march_steps, refine_rounds):
+def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_steps,
+            refine_rounds):
     global LAUNCHES
-    p = t0.shape[0]
+    p, g = t0.numel(), table.shape[0]
     if p >= 2 ** 31:
         raise NotImplementedError(f"the march kernel takes < 2^31 pixels, got {p}")
     from . import _build
     lib = _build.load()
-    dev = t0.device
+    dev = table.device
+    # the table by its strides; the rest are views where contiguous, as the
+    # renderer's are
+    d, a, b = dirs.contiguous(), t0.contiguous(), t1.contiguous()
+    ok, c, ctr = valid.contiguous(), cam.contiguous(), center_xz.contiguous()
+    compact = torch.empty(g * g, dtype=torch.bfloat16, device=dev)
+    found = torch.empty(t0.shape, dtype=torch.bool, device=dev)
+    lo = torch.empty(t0.shape, dtype=torch.float32, device=dev)
+    hi = torch.empty(t0.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        found = torch.empty(p, dtype=torch.uint8, device=dev)
-        lo = torch.empty(p, dtype=torch.float32, device=dev)
-        hi = torch.empty(p, dtype=torch.float32, device=dev)
         rc = lib.march_heightfield(
-            table16.data_ptr(), bx.data_ptr(), bz.data_ptr(), dy.data_ptr(), t0.data_ptr(),
-            t1.data_ptr(), valid.data_ptr(), scal.data_ptr(), found.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), p, table16.shape[0], march_steps, _f32(1.0 / march_steps),
-            refine_rounds, stream)
-        if rc:
-            raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
-        LAUNCHES += 1
-    return found.bool(), lo, hi
+            table.data_ptr(), int(table.dtype == torch.bfloat16), *table.stride(),
+            compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), ok.data_ptr(),
+            c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)), found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g,
+            march_steps, _f32(1.0 / march_steps), refine_rounds, VARIANT,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return found, lo, hi
 
 
 def _check(table, dirs, t0, t1, valid, cam, center_xz, march_steps, refine_rounds):
@@ -178,7 +192,5 @@ def march_heightfield(table: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor,
     _check(table, dirs, t0, t1, valid, cam, center_xz, march_steps, refine_rounds)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    table16, lanes, scal = _lanes(table, dirs, t0, t1, valid, cam, center_xz, origin, cell)
-    found, lo, hi = _launch(table16, *lanes[:5], lanes[5].view(torch.uint8), torch.stack(scal),
-                            march_steps=march_steps, refine_rounds=refine_rounds)
-    return found.reshape(t0.shape), lo.reshape(t0.shape), hi.reshape(t0.shape)
+    return _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell,
+                   march_steps=march_steps, refine_rounds=refine_rounds)

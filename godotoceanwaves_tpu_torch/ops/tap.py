@@ -7,25 +7,33 @@ reaches from `shading._slab_tap` / `_gradient_tap` inside
 band's mip level and slab window, a `lax.cond` between the linear tap and
 the bicubic/bilinear blend, one kernel call per (band, cascade). Eager
 PyTorch would read those choices on the host, one sync per (band, cascade).
-The kernel in `csrc/tap.cu` takes them on the device instead: one thread
-per pixel walks the cascades, reads the band's level, skips the cascade at
-the skip value, and taps the full mip level circularly (2x2 texels, or 4x4
-for the blend), with the TPU kernel's weights (circular distance, rounded
-to bf16) and fp32 sums. A slab window of the v-duplicated table holds the
-same texels at the same fp32 distances, so no window is built.
+The kernel in `csrc/tap.cu` takes them on the device instead: a block per
+(band, slice of pixels) reads the band's levels once, skips a cascade at
+the skip value, and each thread taps the full mip level circularly (2x2
+texels, or 4x4 for the blend), with the TPU kernel's weights (circular
+distance, rounded to bf16) and fp32 sums. A slab window of the v-duplicated
+table holds the same texels at the same fp32 distances, so no window is
+built.
 
-On a CPU tensor `gradient_lod_tap` runs the plain version, the JAX
+A wrapper call is one launch: the kernel reads the caller's levels in place
+(fp32, as the renderer builds them, or bf16; each texel rounded to bf16 as
+it is loaded) through a table of level pointers, and `xz_bands` by its
+strides. On a CPU tensor `gradient_lod_tap` runs the plain version, the JAX
 package's einsum taps in `models/shading.py` (`cascade_gradient_lod` with
-tap_impl="einsum"). The kernel is bound by its 2 floats in and 3 floats out
-per pixel: the whole bf16 pyramid of 3 x 1024^2 maps is ~25 MB and stays in
-the 50 MB L2, and a pixel's arithmetic is a few hundred flops.
+tap_impl="einsum"). The kernel is bound by the texels its taps touch, its 2
+floats in and its 3 floats out a pixel; a pixel's arithmetic is a few
+hundred flops.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 # Kernel launches since the last reset.
 LAUNCHES = 0
+MAX_LEVELS = 16         # csrc/tap.cu kMaxLevels: 8192^2 down to 8^2 needs 11
+MAX_BANDS = 65535       # the grid's y extent
 
 
 def check_inputs(pyramid, map_scales, xz_bands, band_levels) -> None:
@@ -42,6 +50,9 @@ def check_inputs(pyramid, map_scales, xz_bands, band_levels) -> None:
                              f"{(c, 3, n, n)}, got {tuple(p.shape)}")
         if p.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"pyramid levels must be float32 or bfloat16, got {p.dtype}")
+        if p.dtype != pyramid[0].dtype:
+            raise TypeError(f"pyramid levels must share one dtype: level 0 is "
+                            f"{pyramid[0].dtype}, level {lev} {p.dtype}")
         if p.device != xz_bands.device:
             raise ValueError(f"pyramid level {lev} is on {p.device}, xz_bands on "
                              f"{xz_bands.device}")
@@ -73,23 +84,26 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
     global LAUNCHES
     b, p, _ = xz_bands.shape
     c, _, r, _ = pyramid[0].shape
-    if b * p >= 2 ** 31:
-        raise NotImplementedError(f"the gradient-tap kernel takes < 2^31 pixels, got {b * p}")
+    if len(pyramid) > MAX_LEVELS or b > MAX_BANDS or b * p >= 2 ** 31:
+        raise NotImplementedError(f"the gradient-tap kernel takes <= {MAX_LEVELS} levels, "
+                                  f"<= {MAX_BANDS} bands and < 2^31 pixels, got "
+                                  f"{len(pyramid)}, {b} and {b * p}")
     from . import _build
     lib = _build.load()
     dev = xz_bands.device
+    levels = [lev.contiguous() for lev in pyramid]          # no copy where contiguous
+    scales = map_scales.contiguous()
+    band_lev = band_levels.contiguous()
+    out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(levels))(*[lev.data_ptr() for lev in levels])
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        flat = torch.cat([lev.to(torch.bfloat16).reshape(-1) for lev in pyramid])
-        scales = map_scales.contiguous()
-        xz = xz_bands.contiguous()
-        levels = band_levels.contiguous()
-        out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
-        rc = lib.lod_tap(flat.data_ptr(), scales.data_ptr(), xz.data_ptr(), levels.data_ptr(),
-                         out.data_ptr(), b, p, c, r, len(pyramid), stream)
-        if rc:
-            raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        rc = lib.lod_tap(ptrs, len(levels), int(levels[0].dtype == torch.bfloat16),
+                         scales.data_ptr(), xz_bands.data_ptr(), *xz_bands.stride(),
+                         band_lev.data_ptr(), out.data_ptr(), b, p, c, r,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
+    LAUNCHES += 1
     return out
 
 
@@ -97,8 +111,8 @@ def gradient_lod_tap(pyramid: list, map_scales: torch.Tensor, xz_bands: torch.Te
                      band_levels: torch.Tensor) -> torch.Tensor:
     """Banded, mip-selected gradient taps summed over cascades -> (B, P, 3).
 
-    pyramid: list of (C, 3, R >> l, R >> l) float32 or bf16 levels
-    (`shading.normal_gradient_pyramid`); map_scales (C, 4) float32;
+    pyramid: list of (C, 3, R >> l, R >> l) levels of one dtype, float32
+    or bf16 (`shading.normal_gradient_pyramid`); map_scales (C, 4) float32;
     xz_bands (B, P, 2) float32 world xz; band_levels (B, C) int32, where
     len(pyramid) skips the cascade. A CUDA tensor launches the kernel; a
     CPU tensor runs the plain version.

@@ -261,6 +261,39 @@ def test_tap_kernel_matches_plain(card, r):
     assert torch.equal(got[5], torch.zeros_like(got[5]))        # all skipped
 
 
+def device_ops_per_call(call, calls: int = 20) -> float:
+    """Device operations (kernels, copies, fills) a call, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tap_kernel_reads_levels_in_place(card, dtype):
+    """fp32 levels (the renderer's) and bf16 levels, each read in place:
+    one device kernel a call, the same numbers from either dtype, and a
+    non-contiguous xz_bands read by its strides without a copy."""
+    pyr, scales, xz, lev = lod_case(card, r=1024)
+    levels = [p.to(dtype) for p in pyr]
+    got = tap.gradient_lod_tap(levels, scales, xz, lev)
+    want = tap.gradient_lod_tap_reference(levels, scales, xz, lev)
+    assert float((got - want).abs().max()) <= 5e-5
+    assert torch.equal(got, tap.gradient_lod_tap([p.float() for p in levels], scales, xz, lev))
+    xz_nc = torch.zeros(xz.shape[:-1] + (5,), device=card)[..., 1:4:2]
+    xz_nc.copy_(xz)
+    assert not xz_nc.is_contiguous()
+    assert torch.equal(tap.gradient_lod_tap(levels, scales, xz_nc, lev), got)
+    assert device_ops_per_call(lambda: tap.gradient_lod_tap(levels, scales, xz_nc, lev)) == 1
+    assert device_ops_per_call(lambda: tap.gradient_lod_tap(levels, scales, xz, lev)) == 1
+
+
 def test_tap_kernel_raises_on_what_it_does_not_take(card):
     pyr, scales, xz, lev = lod_case(card)
     with pytest.raises(TypeError, match="int32"):
@@ -301,6 +334,26 @@ def test_march_kernel_matches_plain(card):
     assert 0.1 < float(both.float().mean()) < 0.999
     for a, b in ((lo, wlo), (hi, whi)):
         assert float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_march_kernel_takes_fp32_and_bf16_tables(card, dtype):
+    """The table read in place in either dtype (rounded to bf16 as it is
+    read): the same result from both, within tolerance of the plain
+    version, one device kernel a call, a bool `found`."""
+    table, *rest = march_case(card)
+    tab = table.to(dtype)
+    run = dict(march_steps=32, refine_rounds=2)
+    got = march.march_heightfield(tab, *rest, **run)
+    assert got[0].dtype == torch.bool and got[0].shape == (180, 320)
+    for a, b in zip(got, march.march_heightfield(table.to(torch.bfloat16).float(), *rest, **run)):
+        assert torch.equal(a, b)
+    wf, wlo, whi = march.march_heightfield_reference(tab, *rest, **run)
+    assert float((got[0] == wf).float().mean()) >= 0.999
+    both = got[0] & wf
+    for a, b in ((got[1], wlo), (got[2], whi)):
+        assert float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max()) <= 1e-4
+    assert device_ops_per_call(lambda: march.march_heightfield(tab, *rest, **run)) == 1
 
 
 def test_march_kernel_raises_on_what_it_does_not_take(card):

@@ -56,6 +56,54 @@ def test_plain_march_matches_jax_interpret(steps, rounds):
     np.testing.assert_allclose(thi.numpy()[jf], jhi[jf], rtol=1e-5, atol=0)
 
 
+def grouped_march(table16, bx, bz, dy, t0, t1, valid, ax, az, cy, *, march_steps: int,
+                  refine_rounds: int, group: int = 8):
+    """A torch model of csrc/march.cu's control flow: a round's samples in
+    groups of `group`, every sample of a group evaluated, the group's first
+    crossing taken, and a pixel's round stopped between groups."""
+    g = table16.shape[0]
+    flat = table16.reshape(-1)
+    hi_cap = float(np.float32(g) - np.float32(1.001))
+    below = lambda t: march._below(flat, g, hi_cap, ax, az, cy, bx, bz, dy, t)
+
+    def run_round(lo, hi, m, ok):
+        seg = (hi - lo) * march._f32(1.0 / m)
+        done, new_lo, new_hi = ~ok, lo, hi
+        for k0 in range(0, m, group):
+            hits = torch.stack([below(lo + (k0 + q + 1.0) * seg) if k0 + q < m
+                                else torch.zeros_like(ok) for q in range(group)])
+            first = torch.argmax(hits.to(torch.int32), dim=0)
+            t = lo + (k0 + first + 1).float() * seg
+            now = hits.any(dim=0) & ~done
+            new_lo, new_hi = torch.where(now, t - seg, new_lo), torch.where(now, t, new_hi)
+            done = done | now
+        return done & ok, new_lo, new_hi
+
+    b0 = below(t0) & valid
+    hit, lo, hi = run_round(t0, t1, march_steps, valid & ~b0)
+    seg0 = (t1 - t0) * march._f32(1.0 / march_steps)
+    lo = torch.where(b0, t0, lo)
+    hi = torch.where(b0, t0 + seg0, hi)
+    found = hit | b0
+    for _ in range(refine_rounds):
+        _, lo, hi = run_round(lo, hi, 8, found)
+    return found, lo, hi
+
+
+@pytest.mark.parametrize("steps,rounds", [(24, 2), (32, 2), (16, 3), (20, 1)])
+def test_grouped_first_crossing_equals_serial_march(steps, rounds):
+    """The kernel's groups of 8 give the serial march's first crossing bit
+    for bit (march_steps a multiple of 8 or not)."""
+    table, d, t0, t1, valid, cam, center = (torch.from_numpy(a) for a in march_inputs(steps))
+    table16, lanes, scal = march._lanes(table, d, t0, t1, valid, cam, center, ORIGIN, CELL)
+    run = dict(march_steps=steps, refine_rounds=rounds)
+    want = march.march_reference(table16, *lanes, *scal, **run)
+    got = grouped_march(table16, *lanes, *scal, **run)
+    assert 0.2 < float(want[0].float().mean()) < 0.95
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_plain_march_keeps_frame_shape():
     table, d, t0, t1, valid, cam, center = march_inputs(3)
     args = [torch.from_numpy(a) for a in (table, d, t0, t1, valid, cam, center)]
@@ -110,3 +158,5 @@ def test_wrapper_rejects_what_it_does_not_take():
         run(table, d, t0.double(), t1, valid, cam, center)
     with pytest.raises(ValueError, match="march_steps"):
         run(table, d, t0, t1, valid, cam, center, march_steps=0)
+    with pytest.raises(ValueError, match=r"cam must be \(3,\)"):
+        run(table, d, t0, t1, valid, cam[:2], center)

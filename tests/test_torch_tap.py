@@ -168,3 +168,35 @@ def test_wrapper_rejects_what_it_does_not_take():
         tap.gradient_lod_tap(pyr, s, x[..., :1], lv)
     with pytest.raises(ValueError, match="at least one"):
         tap.gradient_lod_tap([], s, x, lv)
+    with pytest.raises(TypeError, match="one dtype"):
+        tap.gradient_lod_tap([pyr[0], pyr[1].to(torch.bfloat16), pyr[2]], s, x, lv)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_taps_equal_from_fp32_and_bf16_levels(seed):
+    """The kernel reads the caller's levels in place and rounds each texel
+    to bf16 as it loads it; the plain version rounds the levels to bf16
+    first. Either way the taps see the same bf16 texels, so fp32 levels
+    (the renderer's) and their bf16 copies give equal results."""
+    normal, scales, xz, lev, levels = lod_inputs(seed=seed)
+    pyr = torch_pyramid(normal, levels)
+    args = (torch.from_numpy(scales), torch.from_numpy(xz), torch.from_numpy(lev))
+    assert pyr[0].dtype == torch.float32
+    fp32 = tap.gradient_lod_tap(pyr, *args)
+    bf16 = tap.gradient_lod_tap([p.to(torch.bfloat16) for p in pyr], *args)
+    assert torch.equal(fp32, bf16)
+    assert float(fp32.abs().max()) > 0.1
+
+
+def test_power_of_two_wrap_is_jnp_mod():
+    """csrc/tap.cu wraps a texel coordinate by f - n floor(f / n) where n is a
+    power of two, and by fmod (+ n when negative) elsewhere: the two give
+    the same fp32 numbers, seam values included."""
+    rng = np.random.RandomState(3)
+    for n in (8, 64, 1024, 8192):
+        f = np.concatenate([rng.uniform(-4 * n, 4 * n, 4000), rng.uniform(-1e6, 1e6, 4000),
+                            [-1e-8, -0.5, -n, n, 0.0, -0.0, n - 1e-5, -n + 1e-5, 3 * n - 0.5]])
+        f = torch.from_numpy(f.astype(np.float32))
+        nf = torch.tensor(float(n))
+        wrapped = f - nf * torch.floor(f / nf)
+        assert torch.equal(wrapped, ts._fmod_pos(f, n)), n
