@@ -1273,7 +1273,7 @@ def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
             use()
             out[f"K6 {size}{label}"] = time_alone(
                 torch, f"K6 {size}{label} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds",
-                "march_kernel", call, plain_ms, moved, flops, card)
+                "march_", call, plain_ms, moved, flops, card)
     return out
 
 
