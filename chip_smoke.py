@@ -1224,25 +1224,6 @@ def time_alone(torch, tag: str, name: str, call, plain_ms: float, moved: float, 
             "call_ms_all": whole, "ops_per_call": max(ops), "plain_ms": plain_ms, "bound": bnd}
 
 
-def variants(torch, module, call, tag: str):
-    """(form's name, setter) for each form of `module`'s kernel under
-    measurement (`VARIANTS`), each checked equal to the first form's output."""
-    forms = getattr(module, "VARIANTS", None)
-    if not forms:
-        return [("", lambda: None)]
-    module.VARIANT = next(iter(forms))
-    ref = call()
-    out = []
-    for v, label in forms.items():
-        module.VARIANT = v
-        got = call()
-        got, want = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              f"{tag}: form {label!r} differs from form {forms[next(iter(forms))]!r}")
-        out.append((f" [{label}]", lambda v=v: setattr(module, "VARIANT", v)))
-    return out
-
-
 def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
     """K5 and K6 alone, each in its own block: K5 on the random case and on
     the arguments of one TAP_FRAME frame, K6 on MARCH_RAYS rays."""
@@ -1254,13 +1235,11 @@ def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
         pyr, scales, xz, lev = args
         call = lambda: tap.gradient_lod_tap(*args)
         moved = tap_bytes(torch, pyr, scales, xz, lev, call())
-        plain_ms = once(lambda: tap.gradient_lod_tap_reference(*args))
-        for label, use in variants(torch, tap, call, f"K5 {case}"):
-            use()
-            tag = (f"K5 {case}{label} ({xz.shape[0]} bands x {xz.shape[1]} px, {len(pyr)} "
-                   f"{pyr[0].dtype} levels of {tuple(pyr[0].shape)})")
-            out[f"K5 {case}{label}"] = time_alone(torch, tag, "lod_tap_kernel", call, plain_ms,
-                                                  moved, tap_flops(*args), card)
+        tag = (f"K5 {case} ({xz.shape[0]} bands x {xz.shape[1]} px, {len(pyr)} {pyr[0].dtype} "
+               f"levels of {tuple(pyr[0].shape)})")
+        out[f"K5 {case}"] = time_alone(torch, tag, "lod_tap_kernel", call,
+                                       once(lambda: tap.gradient_lod_tap_reference(*args)),
+                                       moved, tap_flops(*args), card)
     for size, args in march_res["args"].items():
         call = lambda: march.march_heightfield(*args, **MARCH_RUN)
         found, lo, hi = call()
@@ -1268,21 +1247,22 @@ def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
         moved = nbytes(*tensors, found, lo, hi)
         flops = march_flops(torch, args, found, lo, MARCH_RUN["march_steps"],
                             MARCH_RUN["refine_rounds"])
-        plain_ms = once(lambda: march.march_heightfield_reference(*args, **MARCH_RUN))
-        for label, use in variants(torch, march, call, f"K6 {size}"):
-            use()
-            out[f"K6 {size}{label}"] = time_alone(
-                torch, f"K6 {size}{label} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds",
-                "march_", call, plain_ms, moved, flops, card)
+        out[f"K6 {size}"] = time_alone(
+            torch, f"K6 {size} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds", "march_kernel",
+            call, once(lambda: march.march_heightfield_reference(*args, **MARCH_RUN)), moved,
+            flops, card)
     return out
 
 
 def alone_entry(res: dict, suffix: str = "") -> dict:
     """A kernels-line entry's timing keys from `time_alone`: kernel-only ms,
-    the whole call, the plain version, the bound."""
-    return {f"ms{suffix}": res["ms"], f"call_ms{suffix}": res["call_ms"],
+    every device operation of a call, the whole call, the plain version, the
+    bound."""
+    return {f"ms{suffix}": res["ms"], f"device_ms{suffix}": res["device_ms"],
+            f"call_ms{suffix}": res["call_ms"],
             f"plain_ms{suffix}": res["plain_ms"], f"bound_ms{suffix}": res["bound"][0],
-            f"bound_by{suffix}": res["bound"][1], f"device_ops_per_call{suffix}": res["ops_per_call"]}
+            f"bound_by{suffix}": res["bound"][1],
+            f"device_ops_per_call{suffix}": res["ops_per_call"]}
 
 
 def phase_render_timing(torch, dev, maps, scales, card: str) -> dict:

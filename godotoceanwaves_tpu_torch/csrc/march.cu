@@ -7,27 +7,34 @@
 //
 // The kernel takes the wrapper's inputs as they come: rays (P, 3), the march
 // window t0, t1, the valid mask (bool bytes), the camera (3,), the grid
-// centre (2,), and the table in fp32 or bf16 (each texel rounded to bf16 as
-// it is read). It folds the geometry into per-pixel linear forms with the
-// fp32 operations of ops/march.py _lanes (pallas_march.py:138-148):
+// centre (2,), and the table in fp32 or bf16 by its strides (the renderer's
+// is a (G, G, 3)[..., 1] slice). It folds the geometry into per-pixel linear
+// forms with the fp32 operations of ops/march.py _lanes
+// (pallas_march.py:138-148):
 //   fx(t) = ax + t bx, ax = (cam_x - centre_x - origin) * inv_cell, bx = dir_x * inv_cell
 //   (z alike), below(t) = cam_y + t dir_y < h(fx(t), fz(t)).
 //
 // Per pixel: b0 = below(t0) (camera under a crest: bracket (t0, t0 + seg));
 // else the first of march_steps samples t = t0 + (k + 1) seg below the
 // surface brackets (t - seg, t]; then refine_rounds rounds of 8 samples
-// inside the bracket. Samples run in groups of 8: a group issues the texel
-// loads of all its samples before any compare, takes its first crossing,
-// and the round stops between groups. Later samples cannot change the first
-// crossing, so this is the serial march's result bit for bit, as the TPU
-// kernel's (pallas_march.py:76-88). The numbers follow the TPU kernel: bf16
-// table, z hat weights rounded to bf16 (pallas_march.py:69), x hat weights
-// kept fp32 (:73), fp32 sums; no contraction (built with -fmad=false,
-// ops/_build.py).
+// inside the bracket. Samples run in groups of kGroup: a group issues the
+// texel loads of all its samples before any compare, takes its first
+// crossing, and the round stops between groups. Later samples cannot change
+// the first crossing, so this is the serial march's result bit for bit, as
+// the TPU kernel's (pallas_march.py:76-88). The numbers follow the TPU
+// kernel: bf16 table, z hat weights rounded to bf16 (pallas_march.py:69), x
+// hat weights kept fp32 (:73), fp32 sums; no contraction (built with
+// -fmad=false, ops/_build.py).
 //
-// What bounds it: the table reads, 4 texels a sample (a 256^2 bf16 table is
-// 128 KB and stays in L1/L2) and ~56 samples a pixel at the interactive
-// settings; 21 bytes in and 9 out per pixel.
+// What bounds it: the table reads, 4 texels a sample and ~56 samples a
+// pixel at the interactive settings; 21 bytes in and 9 out per pixel. The
+// renderer's strided fp32 table spans 768 KB at G = 256, more than an SM's
+// L1, so the launch is a cooperative grid of resident blocks that first
+// copies the table once into a compact bf16 scratch (128 KB, L1-resident),
+// meets at a grid-wide barrier, then marches the pixels in turn. Groups of
+// 4 samples beat 1 and 8 (1 leaves each sample's loads waiting on the last
+// compare; 8 takes 80 registers to 4's 61), and the compact table beat
+// reading the strided table in place by 1.4x at 640x360 (PERF.md, PR 9).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -37,16 +44,19 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGroup = 4;
 
 __device__ __forceinline__ float bf16_round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ float texel(const float* p) { return bf16_round(__ldg(p)); }
-__device__ __forceinline__ float texel(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float texel(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+}
 
-// The table by its element strides (a (G, G, 3)[..., 1] slice is read in
-// place), texel (i, j) at p[i * row + j * col].
+// The caller's table by its element strides, texel (i, j) at
+// p[i * row + j * col].
 template <typename T>
 struct Table {
     const T* p;
@@ -75,8 +85,7 @@ struct Sample {
     float t, fx, fz, h[4];
 };
 
-template <typename Tab>
-__device__ __forceinline__ Sample load(const Tab& tab, float hi_cap, const Ray& r, float t) {
+__device__ __forceinline__ Sample load(const Compact& tab, float hi_cap, const Ray& r, float t) {
     Sample s;
     s.t = t;
     s.fx = fminf(fmaxf(r.ax + t * r.bx, 0.0f), hi_cap);
@@ -100,32 +109,30 @@ __device__ __forceinline__ bool below(const Sample& s, const Ray& r) {
     return (r.cy + s.t * r.dy) < r0 * wx0 + r1 * wx1;
 }
 
-// The first crossing among samples k0 + 1 .. k0 + GROUP (of m) at
+// The first crossing among samples k0 + 1 .. k0 + kGroup (of m) at
 // t = lo + k seg, every load issued before the first compare: its index
-// within the group, or GROUP.
-template <int GROUP, typename Tab>
-__device__ __forceinline__ int group_first(const Tab& tab, float hi_cap, const Ray& r, float lo,
-                                           float seg, int k0, int m) {
-    Sample s[GROUP];
+// within the group, or kGroup.
+__device__ __forceinline__ int group_first(const Compact& tab, float hi_cap, const Ray& r,
+                                           float lo, float seg, int k0, int m) {
+    Sample s[kGroup];
 #pragma unroll
-    for (int q = 0; q < GROUP; ++q) s[q] = load(tab, hi_cap, r, lo + (float)(k0 + q + 1) * seg);
-    int first = GROUP;
+    for (int q = 0; q < kGroup; ++q) s[q] = load(tab, hi_cap, r, lo + (float)(k0 + q + 1) * seg);
+    int first = kGroup;
 #pragma unroll
-    for (int q = GROUP - 1; q >= 0; --q)
+    for (int q = kGroup - 1; q >= 0; --q)
         if (k0 + q < m && below(s[q], r)) first = q;
     return first;
 }
 
 // The first below-surface crossing among m samples of (lo, hi]; the bracket
 // is updated in place when one is found.
-template <int GROUP, typename Tab>
-__device__ __forceinline__ bool run_round(const Tab& tab, float hi_cap, const Ray& r, float& lo,
-                                          float& hi, int m, float inv_m, bool ok) {
+__device__ __forceinline__ bool run_round(const Compact& tab, float hi_cap, const Ray& r,
+                                          float& lo, float& hi, int m, float inv_m, bool ok) {
     const float seg = (hi - lo) * inv_m;
     if (!ok) return false;
-    for (int k0 = 0; k0 < m; k0 += GROUP) {
-        const int q = group_first<GROUP>(tab, hi_cap, r, lo, seg, k0, m);
-        if (q < GROUP) {
+    for (int k0 = 0; k0 < m; k0 += kGroup) {
+        const int q = group_first(tab, hi_cap, r, lo, seg, k0, m);
+        if (q < kGroup) {
             const float t = lo + (float)(k0 + q + 1) * seg;
             lo = t - seg;
             hi = t;
@@ -144,8 +151,7 @@ struct Args {
     int pixels, g, steps, rounds;
 };
 
-template <int GROUP, typename Tab>
-__device__ __forceinline__ void march_pixel(const Tab& tab, const Args& a, int p) {
+__device__ __forceinline__ void march_pixel(const Compact& tab, const Args& a, int p) {
     const float* d = a.dirs + (int64_t)3 * p;
     const Ray r{(a.cam[0] - a.center[0] - a.org) * a.inv_cell,
                 (a.cam[2] - a.center[1] - a.org) * a.inv_cell, a.cam[1],
@@ -155,73 +161,50 @@ __device__ __forceinline__ void march_pixel(const Tab& tab, const Args& a, int p
     const bool v = a.valid[p] != 0;
     const bool b0 = v && below(load(tab, hi_cap, r, t0), r);
     float lo = t0, hi = t1;
-    bool found = run_round<GROUP>(tab, hi_cap, r, lo, hi, a.steps, a.inv_steps, v && !b0);
+    bool found = run_round(tab, hi_cap, r, lo, hi, a.steps, a.inv_steps, v && !b0);
     if (b0) {
         lo = t0;
         hi = t0 + (t1 - t0) * a.inv_steps;
         found = true;
     }
     for (int k = 0; k < a.rounds; ++k)
-        run_round<GROUP>(tab, hi_cap, r, lo, hi, 8, 0.125f, found);
+        run_round(tab, hi_cap, r, lo, hi, 8, 0.125f, found);
     a.found[p] = found ? 1 : 0;
     a.lo[p] = lo;
     a.hi[p] = hi;
 }
 
-// One thread a pixel, texels read in place through L1.
-template <typename T, int GROUP>
-__global__ void __launch_bounds__(kThreads) march_kernel(Table<T> tab, Args a) {
-    const int p = blockIdx.x * kThreads + threadIdx.x;
-    if (p < a.pixels) march_pixel<GROUP>(tab, a, p);
-}
-
-// A cooperative grid of resident blocks: the table copied once into a
-// compact bf16 table (G^2 x 2 bytes, L1-resident), a grid-wide barrier, then
-// the pixels, a thread a pixel in turn.
-template <typename T, int GROUP>
-__global__ void __launch_bounds__(kThreads) march_compact_kernel(Table<T> src,
-                                                                 __nv_bfloat16* compact, Args a) {
+// A cooperative grid of resident blocks: the table copied once into the
+// compact bf16 scratch, a grid-wide barrier, then the pixels, a thread a
+// pixel in turn.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) march_kernel(Table<T> src, __nv_bfloat16* compact,
+                                                         Args a) {
     const int texels = a.g * a.g, stride = gridDim.x * kThreads;
     for (int k = blockIdx.x * kThreads + threadIdx.x; k < texels; k += stride)
         compact[k] = __float2bfloat16_rn(src(k / a.g, k % a.g));
     cooperative_groups::this_grid().sync();
     const Compact tab{compact, a.g};
     for (int p = blockIdx.x * kThreads + threadIdx.x; p < a.pixels; p += stride)
-        march_pixel<GROUP>(tab, a, p);
+        march_pixel(tab, a, p);
 }
 
-template <typename T, int GROUP>
-cudaError_t launch(Table<T> tab, __nv_bfloat16* compact, Args a, int variant,
-                   cudaStream_t stream) {
-    if (variant >= 3) {
-        march_kernel<T, GROUP><<<(a.pixels + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-            tab, a);
-        return cudaGetLastError();
-    }
+template <typename T>
+cudaError_t launch(Table<T> tab, __nv_bfloat16* compact, Args a, cudaStream_t stream) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, march_compact_kernel<T, GROUP>, kThreads, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, march_kernel<T>, kThreads, 0);
     if (err != cudaSuccess) return err;
+    // every block resident (the barrier needs it), and no more than the work
     const int64_t work = a.pixels > a.g * a.g ? a.pixels : a.g * a.g;
     const int64_t want = (work + kThreads - 1) / kThreads;
     const int blocks = (int)(want < (int64_t)sms * per_sm ? want : (int64_t)sms * per_sm);
     void* args[] = {&tab, &compact, &a};
-    err = cudaLaunchCooperativeKernel((const void*)march_compact_kernel<T, GROUP>, blocks,
-                                      kThreads, args, 0, stream);
+    err = cudaLaunchCooperativeKernel((const void*)march_kernel<T>, blocks, kThreads, args, 0,
+                                      stream);
     return err == cudaSuccess ? cudaGetLastError() : err;
-}
-
-template <typename T>
-cudaError_t launch_variant(Table<T> tab, __nv_bfloat16* compact, const Args& a, int variant,
-                           cudaStream_t st) {
-    switch (variant) {
-        case 1: return launch<T, 4>(tab, compact, a, variant, st);
-        case 2: case 4: return launch<T, 8>(tab, compact, a, variant, st);
-        default: return launch<T, 1>(tab, compact, a, variant, st);
-    }
 }
 
 }  // namespace
@@ -235,15 +218,14 @@ extern "C" int march_heightfield(const void* table, int bf16, long long row, lon
                                  const void* valid, const void* cam, const void* center,
                                  float org, float inv_cell, void* found, void* lo, void* hi,
                                  int pixels, int g, int steps, float inv_steps, int rounds,
-                                 int variant, void* stream) {
+                                 void* stream) {
     if (pixels == 0) return 0;
     const Args a{(const float*)dirs, (const float*)t0, (const float*)t1, (const float*)cam,
                  (const float*)center, (const uint8_t*)valid, (uint8_t*)found, (float*)lo,
                  (float*)hi, org, inv_cell, inv_steps, pixels, g, steps, rounds};
     const auto st = (cudaStream_t)stream;
     auto* c = (__nv_bfloat16*)compact;
-    return (int)(bf16 ? launch_variant(Table<__nv_bfloat16>{(const __nv_bfloat16*)table, row, col},
-                                       c, a, variant, st)
-                      : launch_variant(Table<float>{(const float*)table, row, col}, c, a, variant,
-                                       st));
+    if (bf16)
+        return (int)launch(Table<__nv_bfloat16>{(const __nv_bfloat16*)table, row, col}, c, a, st);
+    return (int)launch(Table<float>{(const float*)table, row, col}, c, a, st);
 }

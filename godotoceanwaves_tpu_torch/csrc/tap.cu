@@ -60,7 +60,9 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 __device__ __forceinline__ float texel(const float* p) { return bf16_round(__ldg(p)); }
-__device__ __forceinline__ float texel(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ float texel(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+}
 
 __device__ __forceinline__ float hat_weight(float d) { return fmaxf(0.0f, 1.0f - d); }
 

@@ -52,10 +52,9 @@ _SIGNATURES = {
     #         out, bands, pixels, cascades, res, stream)
     "lod_tap": (_PP, _I, _I, _P, _P, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I, _P),
     # march_heightfield(table, bf16, row, col, compact, dirs, t0, t1, valid, cam, center, org,
-    #                   inv_cell, found, lo, hi, pixels, g, steps, inv_steps, rounds, variant,
-    #                   stream)
+    #                   inv_cell, found, lo, hi, pixels, g, steps, inv_steps, rounds, stream)
     "march_heightfield": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I,
-                          _I, _I, _F, _I, _I, _P),
+                          _I, _I, _F, _I, _P),
 }
 
 

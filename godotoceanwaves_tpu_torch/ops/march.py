@@ -14,16 +14,17 @@ both), fp32 sums. Geometry is folded into per-pixel linear forms:
     below(t)          = cam_y + t * dir_y < h(fx(t), fz(t))
 
 On a CUDA tensor `march_heightfield` is one launch of `csrc/march.cu`: the
-kernel takes the rays, window, mask, camera, centre and table as they come
-(fp32 or bf16 table), forms the linear forms with `_lanes`'s fp32
-operations, and writes `found` straight into a bool tensor. One thread
-marches one pixel in groups of 8 samples, every load of a group issued
-before its first compare, and stops a round between groups at its first
-crossing (the samples after it cannot change the result). On a CPU tensor
-it runs the plain version, a vectorised transliteration of `_march_kernel`.
-The kernel is bound by its table reads: a 256^2 bf16 table is 128 KB and
-stays in L1/L2, and each sample reads 4 texels; per pixel 5 floats and a
-byte come in, a byte and 2 floats go out.
+kernel takes the rays, window, mask, camera and centre as they come and
+the table by its strides (fp32 or bf16; the renderer's is a strided
+slice), forms the linear forms with `_lanes`'s fp32 operations, and writes
+`found` straight into a bool tensor. Its cooperative grid first copies the
+table into a compact bf16 scratch that stays in L1, then marches a thread
+a pixel in groups of 4 samples, every load of a group issued before its
+first compare, and stops a round between groups at its first crossing
+(the samples after it cannot change the result). On a CPU tensor it runs
+the plain version, a vectorised transliteration of `_march_kernel`. The
+kernel is bound by its table reads: each sample reads 4 texels; per pixel
+5 floats and a byte come in, a byte and 2 floats go out.
 """
 from __future__ import annotations
 
@@ -32,10 +33,6 @@ import torch
 
 # Kernel launches since the last reset.
 LAUNCHES = 0
-# csrc/march.cu's forms under measurement: (samples a group, blocks an SM)
-VARIANTS = {0: "compact, group 1", 1: "compact, group 4", 2: "compact, group 8",
-            3: "in place, group 1", 4: "in place, group 8"}
-VARIANT = 0
 
 
 def _f32(x: float) -> float:
@@ -91,8 +88,9 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
             refine_rounds):
     global LAUNCHES
     p, g = t0.numel(), table.shape[0]
-    if p >= 2 ** 31:
-        raise NotImplementedError(f"the march kernel takes < 2^31 pixels, got {p}")
+    if p >= 2 ** 31 or g * g >= 2 ** 31:
+        raise NotImplementedError(f"the march kernel takes < 2^31 pixels and texels, got {p} "
+                                  f"and {g * g}")
     from . import _build
     lib = _build.load()
     dev = table.device
@@ -100,7 +98,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
     # renderer's are
     d, a, b = dirs.contiguous(), t0.contiguous(), t1.contiguous()
     ok, c, ctr = valid.contiguous(), cam.contiguous(), center_xz.contiguous()
-    compact = torch.empty(g * g, dtype=torch.bfloat16, device=dev)
+    compact = torch.empty(g * g, dtype=torch.bfloat16, device=dev)     # the kernel's scratch
     found = torch.empty(t0.shape, dtype=torch.bool, device=dev)
     lo = torch.empty(t0.shape, dtype=torch.float32, device=dev)
     hi = torch.empty(t0.shape, dtype=torch.float32, device=dev)
@@ -108,8 +106,9 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
         rc = lib.march_heightfield(
             table.data_ptr(), int(table.dtype == torch.bfloat16), *table.stride(),
             compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), ok.data_ptr(),
-            c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)), found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g,
-            march_steps, _f32(1.0 / march_steps), refine_rounds, VARIANT,
+            c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)),
+            found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g, march_steps,
+            _f32(1.0 / march_steps), refine_rounds,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")

@@ -336,13 +336,18 @@ def test_march_kernel_matches_plain(card):
         assert float(((a - b).abs() / b.abs().clamp_min(1e-6))[both].max()) <= 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_march_kernel_takes_fp32_and_bf16_tables(card, dtype):
-    """The table read in place in either dtype (rounded to bf16 as it is
-    read): the same result from both, within tolerance of the plain
-    version, one device kernel a call, a bool `found`."""
+@pytest.mark.parametrize("layout", ["float32", "bfloat16", "float32 slice"])
+def test_march_kernel_takes_fp32_and_bf16_tables(card, layout):
+    """The table read in place in either dtype, or by its strides as the
+    renderer's (G, G, 3)[..., 1] slice, each texel rounded to bf16: the same
+    result from all three, within tolerance of the plain version, one device
+    kernel a call, a bool `found`."""
     table, *rest = march_case(card)
-    tab = table.to(dtype)
+    if layout == "float32 slice":
+        tab = torch.stack([table - 1.0, table, table + 1.0], dim=-1)[..., 1]
+        assert not tab.is_contiguous()
+    else:
+        tab = table.to(getattr(torch, layout))
     run = dict(march_steps=32, refine_rounds=2)
     got = march.march_heightfield(tab, *rest, **run)
     assert got[0].dtype == torch.bool and got[0].shape == (180, 320)

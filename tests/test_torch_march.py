@@ -90,15 +90,17 @@ def grouped_march(table16, bx, bz, dy, t0, t1, valid, ax, az, cy, *, march_steps
     return found, lo, hi
 
 
+@pytest.mark.parametrize("group", [4, 8])
 @pytest.mark.parametrize("steps,rounds", [(24, 2), (32, 2), (16, 3), (20, 1)])
-def test_grouped_first_crossing_equals_serial_march(steps, rounds):
-    """The kernel's groups of 8 give the serial march's first crossing bit
-    for bit (march_steps a multiple of 8 or not)."""
+def test_grouped_first_crossing_equals_serial_march(steps, rounds, group):
+    """Groups of samples (csrc/march.cu's 4; the TPU kernel's 8) give the
+    serial march's first crossing bit for bit (march_steps a multiple of the
+    group or not)."""
     table, d, t0, t1, valid, cam, center = (torch.from_numpy(a) for a in march_inputs(steps))
     table16, lanes, scal = march._lanes(table, d, t0, t1, valid, cam, center, ORIGIN, CELL)
     run = dict(march_steps=steps, refine_rounds=rounds)
     want = march.march_reference(table16, *lanes, *scal, **run)
-    got = grouped_march(table16, *lanes, *scal, **run)
+    got = grouped_march(table16, *lanes, *scal, **run, group=group)
     assert 0.2 < float(want[0].float().mean()) < 0.95
     for a, b in zip(got, want):
         assert torch.equal(a, b)
