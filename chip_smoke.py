@@ -1154,9 +1154,11 @@ def tap_bytes(torch, pyramid, scales, xz, levels, out) -> int:
 
 def device_profile(torch, call, name: str) -> tuple[list, list, list]:
     """Per repeat of ALONE_CALLS back-to-back calls under torch.profiler
-    (device rows only): the device ms a call of the kernels whose name holds
-    `name`, the device ms a call of every device operation (kernels, copies,
-    fills), and the number of those operations a call."""
+    (device rows only): the device ms of a launch of the kernel whose name
+    holds `name`, the device ms a call of every device operation (kernels,
+    copies, fills), and the number of those operations a call. A call is
+    one launch of the named kernel, so a call's figures are per launch of
+    it: the profiler may miss the first launches of a window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
@@ -1167,7 +1169,8 @@ def device_profile(torch, call, name: str) -> tuple[list, list, list]:
             for _ in range(ALONE_CALLS):
                 call()
             torch.cuda.synchronize()
-        us, total, count = 0.0, 0.0, 0
+        us = total = 0.0
+        launches = count = 0
         for e in prof.key_averages():
             if getattr(e, "device_type", None) != DeviceType.CUDA:
                 continue
@@ -1178,9 +1181,11 @@ def device_profile(torch, call, name: str) -> tuple[list, list, list]:
             total += dev_us
             if name in e.key:
                 us += dev_us
-        own.append(us / ALONE_CALLS / 1e3)
-        busy.append(total / ALONE_CALLS / 1e3)
-        ops.append(count / ALONE_CALLS)
+                launches += e.count
+        check(launches > 0, f"no launch of {name} under the profiler")
+        own.append(us / launches / 1e3)
+        busy.append(total / launches / 1e3)
+        ops.append(count / launches)
     return own, busy, ops
 
 
