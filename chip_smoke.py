@@ -1252,17 +1252,10 @@ def phase_kernels_alone(torch, tap_res, march_res, card: str) -> dict:
         moved = nbytes(*tensors, found, lo, hi)
         flops = march_flops(torch, args, found, lo, MARCH_RUN["march_steps"],
                             MARCH_RUN["refine_rounds"])
-        plain_ms = once(lambda: march.march_heightfield_reference(*args, **MARCH_RUN))
-        for stage, form in ((False, ""), (True, " [staged in shared memory]")):
-            march.STAGE_TABLE = stage
-            got = call()
-            march.STAGE_TABLE = False
-            check(all(torch.equal(a, b) for a, b in zip(got, call())), f"K6 {size}{form} differs")
-            march.STAGE_TABLE = stage
-            out[f"K6 {size}{form}"] = time_alone(
-                torch, f"K6 {size}{form} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds",
-                "march_", call, plain_ms, moved, flops, card)
-        march.STAGE_TABLE = False
+        out[f"K6 {size}"] = time_alone(
+            torch, f"K6 {size} rays, G = {args[0].shape[0]}, 32 steps + 2 rounds", "march_kernel",
+            call, once(lambda: march.march_heightfield_reference(*args, **MARCH_RUN)), moved,
+            flops, card)
     return out
 
 

@@ -85,17 +85,7 @@ struct Sample {
     float t, fx, fz, h[4];
 };
 
-// The table staged in shared memory (bf16).
-struct Staged {
-    const __nv_bfloat16* p;
-    int g;
-    __device__ __forceinline__ float operator()(int i, int j) const {
-        return __bfloat162float(p[i * g + j]);
-    }
-};
-
-template <typename Tab>
-__device__ __forceinline__ Sample load(const Tab& tab, float hi_cap, const Ray& r, float t) {
+__device__ __forceinline__ Sample load(const Compact& tab, float hi_cap, const Ray& r, float t) {
     Sample s;
     s.t = t;
     s.fx = fminf(fmaxf(r.ax + t * r.bx, 0.0f), hi_cap);
@@ -122,8 +112,7 @@ __device__ __forceinline__ bool below(const Sample& s, const Ray& r) {
 // The first crossing among samples k0 + 1 .. k0 + kGroup (of m) at
 // t = lo + k seg, every load issued before the first compare: its index
 // within the group, or kGroup.
-template <typename Tab>
-__device__ __forceinline__ int group_first(const Tab& tab, float hi_cap, const Ray& r,
+__device__ __forceinline__ int group_first(const Compact& tab, float hi_cap, const Ray& r,
                                            float lo, float seg, int k0, int m) {
     Sample s[kGroup];
 #pragma unroll
@@ -137,8 +126,7 @@ __device__ __forceinline__ int group_first(const Tab& tab, float hi_cap, const R
 
 // The first below-surface crossing among m samples of (lo, hi]; the bracket
 // is updated in place when one is found.
-template <typename Tab>
-__device__ __forceinline__ bool run_round(const Tab& tab, float hi_cap, const Ray& r,
+__device__ __forceinline__ bool run_round(const Compact& tab, float hi_cap, const Ray& r,
                                           float& lo, float& hi, int m, float inv_m, bool ok) {
     const float seg = (hi - lo) * inv_m;
     if (!ok) return false;
@@ -160,11 +148,10 @@ struct Args {
     uint8_t* found;
     float *lo, *hi;
     float org, inv_cell, inv_steps;
-    int pixels, g, steps, rounds, staged;
+    int pixels, g, steps, rounds;
 };
 
-template <typename Tab>
-__device__ __forceinline__ void march_pixel(const Tab& tab, const Args& a, int p) {
+__device__ __forceinline__ void march_pixel(const Compact& tab, const Args& a, int p) {
     const float* d = a.dirs + (int64_t)3 * p;
     const Ray r{(a.cam[0] - a.center[0] - a.org) * a.inv_cell,
                 (a.cam[2] - a.center[1] - a.org) * a.inv_cell, a.cam[1],
@@ -202,37 +189,8 @@ __global__ void __launch_bounds__(kThreads) march_kernel(Table<T> src, __nv_bflo
         march_pixel(tab, a, p);
 }
 
-// Probe: a persistent 1024-thread block an SM stages the table as bf16 in
-// its shared memory, then marches the block's pixels in turn.
-template <typename T>
-__global__ void __launch_bounds__(1024) march_staged_kernel(Table<T> src, Args a) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    auto* tab = reinterpret_cast<__nv_bfloat16*>(smem);
-    const int texels = a.g * a.g;
-    for (int k = threadIdx.x; k < texels; k += 1024)
-        tab[k] = __float2bfloat16_rn(src(k / a.g, k % a.g));
-    __syncthreads();
-    for (int p = blockIdx.x * 1024 + threadIdx.x; p < a.pixels; p += gridDim.x * 1024)
-        march_pixel(Staged{tab, a.g}, a, p);
-}
-
-template <typename T>
-cudaError_t launch_staged(Table<T> tab, Args a, cudaStream_t stream) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int smem = a.g * a.g * (int)sizeof(__nv_bfloat16);
-    cudaError_t err = cudaFuncSetAttribute(march_staged_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const int want = (a.pixels + 1023) / 1024;
-    march_staged_kernel<T><<<want < sms ? want : sms, 1024, smem, stream>>>(tab, a);
-    return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch(Table<T> tab, __nv_bfloat16* compact, Args a, cudaStream_t stream) {
-    if (a.staged) return launch_staged(tab, a, stream);
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -260,11 +218,11 @@ extern "C" int march_heightfield(const void* table, int bf16, long long row, lon
                                  const void* valid, const void* cam, const void* center,
                                  float org, float inv_cell, void* found, void* lo, void* hi,
                                  int pixels, int g, int steps, float inv_steps, int rounds,
-                                 int staged, void* stream) {
+                                 void* stream) {
     if (pixels == 0) return 0;
     const Args a{(const float*)dirs, (const float*)t0, (const float*)t1, (const float*)cam,
                  (const float*)center, (const uint8_t*)valid, (uint8_t*)found, (float*)lo,
-                 (float*)hi, org, inv_cell, inv_steps, pixels, g, steps, rounds, staged};
+                 (float*)hi, org, inv_cell, inv_steps, pixels, g, steps, rounds};
     const auto st = (cudaStream_t)stream;
     auto* c = (__nv_bfloat16*)compact;
     if (bf16)

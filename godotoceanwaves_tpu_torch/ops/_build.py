@@ -54,7 +54,7 @@ _SIGNATURES = {
     # march_heightfield(table, bf16, row, col, compact, dirs, t0, t1, valid, cam, center, org,
     #                   inv_cell, found, lo, hi, pixels, g, steps, inv_steps, rounds, stream)
     "march_heightfield": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I,
-                          _I, _I, _F, _I, _I, _P),
+                          _I, _I, _F, _I, _P),
 }
 
 

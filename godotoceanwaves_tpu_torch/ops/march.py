@@ -33,8 +33,6 @@ import torch
 
 # Kernel launches since the last reset.
 LAUNCHES = 0
-# Probe: the table staged per block in shared memory instead of the compact copy.
-STAGE_TABLE = False
 
 
 def _f32(x: float) -> float:
@@ -110,7 +108,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
             compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), ok.data_ptr(),
             c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)),
             found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g, march_steps,
-            _f32(1.0 / march_steps), refine_rounds, int(STAGE_TABLE),
+            _f32(1.0 / march_steps), refine_rounds,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
