@@ -34,7 +34,7 @@
 // meets at a grid-wide barrier, then marches the pixels in turn. Groups of
 // 4 samples beat 1 and 8 (1 leaves each sample's loads waiting on the last
 // compare; 8 takes 80 registers to 4's 61), and the compact table beat
-// reading the strided table in place by 1.4x at 640x360 (PERF.md, PR 9).
+// reading the strided table in place by 1.4x at 640x360 (PERF.md §6).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
