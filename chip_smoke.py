@@ -80,14 +80,36 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     its K3 / exchange / modulate / unpack split, beside 8 single-patch K4
     steps; peak device memory of a sharded step.
 
+17. K5 and K6 alone: kernel-only and every device operation of a call
+    (torch.profiler), the whole wrapper call (CUDA events), 5 x 200 calls.
+18. The reference scene's frame loop (`--scene` runs phases 1 and 18
+    only): `Ocean(map_size=1024, map_dtype="bfloat16")` with the 3 default
+    cascades, 30 warm-up updates, `SpraySession(32768)`, and 48 frames of
+    update + spray advance + a 640x360 `SceneRenderer` frame (interactive
+    tier, environment on) through `FramePipeline`: launch counts (K1 2 an
+    update, K5 1 a frame), the frames (uint8, sky share, animation), the
+    visible particles; the splat with every particle visible on the card
+    against the CPU; a checkpoint of `Ocean` and `SpraySession` at frame 24
+    restored into fresh objects for 4 frames (spray bit-equal, maps close);
+    `make_batched_step` (K = 4) over 8 frames against the sequential loop;
+    the YUV420 wire at 1280x720; one frame under
+    `set_sync_debug_mode("error")`; 3 `LiveViewer` frames; one
+    `demo_torch.py --frames 3 --spray` run. Then, at 640x360 and 1280x720,
+    CUDA events and the host clock for `update`, the spray advance, the
+    render without and with spray, the splat alone (and its product in fp32
+    and as a bf16 product with an fp32 output), the loop through
+    `FramePipeline` and fetching after each render; launches a frame and
+    the device's busy share (torch.profiler), peak device memory.
+
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
 once; for K5 the distinct texels its taps touch) over the card's memory
 rate and the operations it does over the fp32 rate (HBM_TBPS,
 FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
-the sharded step, the card's name and power limit, a JSON line of the
-kernels, then as its last line {"ok": true, "device": {...}}. Exits
+the sharded step, a JSON line of the scene loop, the card's name and power
+limit, a JSON line of the kernels, then as its last line
+{"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
 fails. Imports nothing of JAX.
 """
@@ -157,6 +179,16 @@ TAP_FRAME = "1280x720 native"             # phases 10, 17: K5 on the arguments o
 MARCH_RAYS = ((640, 360), (1280, 720))    # phases 11, 17: K6's rays
 MARCH_RUN = dict(march_steps=32, refine_rounds=2)   # the interactive tier's march
 ALONE_CALLS, ALONE_REPEATS = 200, 5       # phase 17: back-to-back calls a repeat
+# phase 18: the reference scene's frame loop (main.tscn: 3 default cascades,
+# the 32768-particle spray), the viewers' interactive tier
+SCENE = dict(map_size=1024, map_dtype="bfloat16", warmup=30, particles=32768, frames=48,
+             checkpoint_at=24, resumed=4, batch=4, batch_frames=8, dt=1 / 30)
+SCENE_SIZES = ((640, 360), (1280, 720))
+SCENE_PITCH, SCENE_YAW = -12.0, 0.0
+TOL_SPLAT = 2e-3             # max abs, splat on the card vs the CPU (2-byte class)
+TOL_BATCH_STEP, BATCH_EQUAL = 1, 0.999   # uint8 steps; share equal (tests/test_viewport.py:246-249)
+TOL_YUV_MEAN = 6.0           # mean uint8 |delta| of the YUV420 round trip (tests/test_viewport.py:66)
+SCENE_TIMING_ITERS = 10
 # phase 14: (L, R, N) of K3; the config-5 shard at rows = 2 comes first
 ROWS_SHAPES = ((16, 1024, 2048), (16, 128, 1024), (4, 37, 16), (4, 37, 256), (4, 37, 8192))
 SHARD_ROWS_MAIN = 8          # phase 15: config 4's shape on a (1, 8) mesh
@@ -1594,6 +1626,348 @@ def phase_sharded_timing(torch, par, rf, fft, dev, c5, card: str) -> dict:
     return out
 
 
+def scene_session(torch, T, dev, warm: bool = True):
+    """The reference scene: 3 default cascades at 1024^2 with bf16 maps,
+    SCENE["warmup"] updates (none for a session about to be restored), and
+    the spray session (not yet started)."""
+    from godotoceanwaves_tpu_torch.models.viewport import SpraySession
+    ocean = T.Ocean(map_size=SCENE["map_size"], map_dtype=SCENE["map_dtype"],
+                    updates_per_second=0, device=dev)
+    for _ in range(SCENE["warmup"] if warm else 0):
+        ocean.update(SCENE["dt"])
+    return ocean, SpraySession(num_particles=SCENE["particles"], device=dev)
+
+
+def scene_renderer(width: int, height: int, **kw):
+    from godotoceanwaves_tpu_torch.models.viewport import RENDER_TIERS, SceneRenderer
+    return SceneRenderer(width, height, mesh_quality="high", environment=True,
+                         **RENDER_TIERS["interactive"], **kw)
+
+
+def scene_frame(ocean, spray, renderer, cam, with_spray: bool = True):
+    """One tick of the frame loop: update, spray advance, render (uint8)."""
+    maps = ocean.update(SCENE["dt"])
+    scales = ocean.params.map_scales()
+    attrs = spray.advance(maps, scales, SCENE["dt"]) if with_spray else None
+    img = renderer.render(maps, scales, ocean.water_color, ocean.foam_color, cam, SCENE_PITCH,
+                          SCENE_YAW, spray_attrs=attrs)
+    return img, maps, attrs
+
+
+def clone_maps(maps):
+    return maps.displacement.clone(), maps.normal.clone()
+
+
+def phase_scene(torch, T, dev) -> dict:
+    """Phase 18: the scene frame loop on the card, its checks."""
+    from godotoceanwaves_tpu_torch.models import geometry, shading
+    from godotoceanwaves_tpu_torch.models.viewport import (FramePipeline, make_batched_step,
+                                                           ycbcr_to_rgb, yuv420_to_ycbcr)
+    out = {}
+    width, height = SCENE_SIZES[0]
+    ocean, spray = scene_session(torch, T, dev)
+    renderer = scene_renderer(width, height)
+    cam = torch.tensor(CAM0, device=dev)
+    pipe = FramePipeline()
+    frames, visible, unbroken, snap = [], [], [], None
+    n = SCENE["frames"]
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(n):
+        img, maps, attrs = scene_frame(ocean, spray, renderer, cam)
+        visible.append(attrs["visible"].sum())
+        if snap is not None and len(unbroken) < SCENE["resumed"]:
+            unbroken.append((clone_maps(maps), {k: v.clone() for k, v in attrs.items()},
+                             ocean.state.foam.clone()))
+        if i + 1 == SCENE["checkpoint_at"]:
+            snap = (ocean.checkpoint(), spray.checkpoint())
+        host = pipe.push(img)
+        if host is not None:
+            frames.append(host)
+    frames.append(pipe.flush())
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[18] scene loop: {SCENE['warmup']} warm-up updates, then {n} frames of update + "
+        f"spray advance ({SCENE['particles']} particles) + {width}x{height} render through "
+        f"FramePipeline -> launches {counts}")
+    check(counts == only(K1=2 * n, K5=n),
+          f"expected {2 * n} K1 (2 an update) and {n} K5 (1 a frame), counted {counts}")
+    check(len(frames) == n and all(f.shape == (height, width, 3) and f.dtype == np.uint8
+                                   for f in frames), "the pipeline lost or reshaped a frame")
+    vis = torch.stack(visible).cpu().numpy()
+    log(f"[18] visible particles a frame: min {int(vis.min())}, mean {vis.mean():.1f}, max "
+        f"{int(vis.max())} of {SCENE['particles']}")
+    moved = float(np.mean([np.abs(frames[i].astype(np.int16) - frames[i - 1]).mean()
+                           for i in range(1, n)]))
+    means = [float(f.mean()) for f in frames]
+    maps = ocean.maps
+    scales = ocean.params.map_scales()
+    hit = geometry.render_ocean_geometry(
+        maps, scales, "high", width=width, height=height, camera_pos=cam, pitch_deg=SCENE_PITCH,
+        yaw_deg=SCENE_YAW, march_steps=renderer.march_steps, bisect_steps=renderer.bisect_steps,
+        _debug_stage="march", **renderer.render_kwargs)[..., 1]
+    sky = 1.0 - float(hit.mean())
+    log(f"[18] frames: uint8 {frames[0].shape}, mean {min(means):.1f}..{max(means):.1f}, "
+        f"mean |frame - previous| {moved:.3f} uint8 steps, sky share {sky:.4f} (0.05 .. 0.6)")
+    check(0.05 <= sky <= 0.6, f"implausible sky share {sky}")
+    check(20.0 <= min(means) and max(means) <= 235.0, "frames implausibly dark or bright")
+    check(moved > 0.05, "the frames do not change: the loop is not animating")
+    out.update(launches=counts, visible_min=int(vis.min()), visible_mean=float(vis.mean()),
+               visible_max=int(vis.max()), sky_share=sky, frame_change=moved)
+
+    # the spray composite on the card vs the CPU, every particle visible and
+    # at least 0.5 m across (a particle that never activated has scale <= 0)
+    img = renderer._scene(maps, scales, tuple(map(float, ocean.water_color)),
+                          tuple(map(float, ocean.foam_color)), cam, SCENE_PITCH, SCENE_YAW, 70.0)
+    attrs = dict(spray.advance(maps, scales, SCENE["dt"]))
+    attrs["visible"] = torch.ones_like(attrs["visible"])
+    attrs["scale"] = attrs["scale"].abs().clamp_min(0.5)
+    args = (img, attrs["position"], attrs["scale"], attrs["dissolve"], attrs["visible"])
+    kw = dict(camera_pos=CAM0, pitch_deg=SCENE_PITCH, yaw_deg=SCENE_YAW,
+              foam_color=tuple(map(float, ocean.foam_color)))
+    got = shading.splat_spray(*args, custom_z=attrs["custom_z"], **kw)
+    t0 = time.perf_counter()
+    want = shading.splat_spray(*(a.cpu() for a in args), custom_z=attrs["custom_z"].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    e_splat = max_abs(got, want)
+    changed = max_abs(want, img.cpu())
+    log(f"[18] splat, all {SCENE['particles']} particles visible (>= 0.5 m), {width}x{height}: card vs CPU "
+        f"max |delta| {e_splat:.3e} (<= {TOL_SPLAT:g}); the splat moves the frame by up to "
+        f"{changed:.3f}; the CPU took {cpu_s:.1f} s")
+    check(e_splat <= TOL_SPLAT, "the splat on the card disagrees with the CPU")
+    check(changed > 0.05, "the all-visible splat left the frame unchanged")
+    out["splat_max_abs_err"] = e_splat
+
+    # restore at frame checkpoint_at into fresh objects, then resume
+    ocean_r, spray_r = scene_session(torch, T, dev, warm=False)
+    ocean_r.restore(snap[0])
+    spray_r.restore(snap[1])
+    e_foam = e_disp = 0.0
+    bit_equal = True
+    for (disp, _), attrs_u, foam_u in unbroken:
+        _, maps_r, attrs_r = scene_frame(ocean_r, spray_r, renderer, cam)
+        e_disp = max(e_disp, max_abs(maps_r.displacement, disp))
+        e_foam = max(e_foam, max_abs(ocean_r.state.foam, foam_u))
+        bit_equal &= all(torch.equal(attrs_r[k], attrs_u[k]) for k in attrs_u)
+    log(f"[18] restored at frame {SCENE['checkpoint_at']} into a fresh Ocean and SpraySession, "
+        f"{len(unbroken)} frames on: spray attrs bit-equal {bit_equal}; displacement max "
+        f"|delta| {e_disp:.3e} (<= {TOL_RESTORE_DISP:g}), foam {e_foam:.3e} "
+        f"(<= {TOL_RESTORE_FOAM:g})")
+    check(len(unbroken) == SCENE["resumed"] and bit_equal, "restored spray is not bit-equal")
+    check(e_disp <= TOL_RESTORE_DISP and e_foam <= TOL_RESTORE_FOAM,
+          "restored maps drift from the unbroken run")
+    out.update(restore_spray_bit_equal=bit_equal, restore_disp_err=e_disp,
+               restore_foam_err=e_foam)
+
+    # K-frame batched step vs the sequential loop, from one snapshot
+    k, total = SCENE["batch"], SCENE["batch_frames"]
+    seq_o, seq_s = scene_session(torch, T, dev, warm=False)
+    bat_o, bat_s = scene_session(torch, T, dev, warm=False)
+    for o, s in ((seq_o, seq_s), (bat_o, bat_s)):
+        o.restore(snap[0])
+        s.restore(snap[1])
+    seq = [scene_frame(seq_o, seq_s, renderer, cam)[0] for _ in range(total)]
+    sp_params, sp_state = bat_s.ensure_init()
+    fn = make_batched_step(renderer, bat_o.config, sp_params, k)
+    state, clock, bat = bat_o.state, bat_s.clock, []
+    reset_counts()
+    for _ in range(total // k):
+        state, sp_state, stack, _ = fn(state, bat_o.params, sp_state, clock, bat_o.water_color,
+                                       bat_o.foam_color, cam, SCENE_PITCH, SCENE_YAW, 70.0,
+                                       SCENE["dt"])
+        clock += SCENE["dt"] * k
+        bat.extend(stack)
+    torch.cuda.synchronize()
+    bcounts = read_counts()
+    diff = (torch.stack(bat).short() - torch.stack(seq).short()).abs()
+    equal = float((diff == 0).float().mean())
+    log(f"[18] make_batched_step(k={k}) over {total} frames vs the sequential loop: max "
+        f"{int(diff.max())} uint8 steps (<= {TOL_BATCH_STEP}), {equal:.5f} of pixels equal "
+        f"(>= {BATCH_EQUAL}); launches {bcounts}")
+    check(int(diff.max()) <= TOL_BATCH_STEP and equal >= BATCH_EQUAL,
+          "batched frames disagree with the sequential loop")
+    check(bcounts == only(K1=2 * total, K5=total),
+          f"expected {2 * total} K1 (a row and a column pass a frame, from one multi-frame "
+          f"call a batch) and {total} K5")
+    out.update(batched_max_step=int(diff.max()), batched_equal_share=equal,
+               batched_launches=bcounts)
+    del seq_o, seq_s, bat_o, bat_s, ocean_r, spray_r
+
+    # the YUV420 wire at 1280x720
+    w2, h2 = SCENE_SIZES[1]
+    rgb = scene_renderer(w2, h2).render(maps, scales, ocean.water_color, ocean.foam_color, cam,
+                                        SCENE_PITCH, SCENE_YAW).cpu().numpy()
+    flat = scene_renderer(w2, h2, transfer="yuv420").render(
+        maps, scales, ocean.water_color, ocean.foam_color, cam, SCENE_PITCH, SCENE_YAW)
+    wire = flat.cpu().numpy()
+    back = ycbcr_to_rgb(yuv420_to_ycbcr(wire, h2, w2))
+    yuv_err = float(np.abs(back.astype(np.int16) - rgb).mean())
+    log(f"[18] YUV420 wire at {w2}x{h2}: {wire.size} bytes = {wire.size / (w2 * h2):.2f} B/px "
+        f"(RGB {rgb.size / (w2 * h2):.0f}); round trip mean |delta| {yuv_err:.3f} uint8 steps "
+        f"(<= {TOL_YUV_MEAN:g})")
+    check(wire.dtype == np.uint8 and wire.size * 2 == w2 * h2 * 3, "the YUV420 wire is not 1.5 B/px")
+    check(yuv_err <= TOL_YUV_MEAN, "the YUV420 round trip is far from the RGB frame")
+    out.update(yuv_bytes_per_px=wire.size / (w2 * h2), yuv_mean_err=yuv_err)
+
+    # one frame under sync-debug "error": the loop reads nothing back
+    scene_frame(ocean, spray, renderer, cam)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, _, _ = scene_frame(ocean, spray, renderer, cam)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("[18] one update + spray advance + render under torch.cuda.set_sync_debug_mode('error'):"
+        " no host sync")
+    out["sync_free"] = True
+
+    # the viewers: 3 LiveViewer frames, one demo_torch.py run
+    import io
+    from godotoceanwaves_tpu_torch.utils.live import LiveViewer
+    script = iter(["+", "\t", ""])
+    text = io.StringIO()
+    viewer = LiveViewer(ocean, input_fn=lambda: next(script, ""), output=text, spray=True)
+    viewer.run(max_frames=3)
+    check(viewer._spray.started and text.getvalue().count("\x1b[38;2;") > 1000,
+          "LiveViewer drew no frame")
+    log(f"[18] LiveViewer: 3 frames ({viewer.cols}x{viewer.rows * 2} px, spray on), "
+        f"{len(text.getvalue())} characters, p50 {viewer.stats.summary()['ms_p50']:.1f} ms/frame")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "demo_torch.py"), "--frames", "3",
+                           "--spray"], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    log(f"[18] demo_torch.py --frames 3 --spray: rc {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; {proc.stdout.strip().splitlines()[-1:]}")
+    check(proc.returncode == 0 and "frames: 3 x (540, 960, 3) uint8 on cuda" in proc.stdout,
+          f"demo_torch.py failed: {proc.stderr[-2000:]}")
+    out["ocean"], out["spray"], out["cam"] = ocean, spray, cam
+    return out
+
+
+def host_ms(torch, call, iters: int) -> float:
+    """Host clock over `iters` calls ending in a synchronize, ms a call."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def events_and_host(torch, call, iters: int = SCENE_TIMING_ITERS) -> dict:
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    return {"ms": time_cuda(call, iters=iters, warmup=2), "host_ms": host_ms(torch, call, iters)}
+
+
+def in_turns(torch, calls: dict) -> dict:
+    """`events_and_host` of two calls in turns (a, b, b, a): each one's best
+    and every pass, so a difference stands beside the host's spread."""
+    a, b = calls
+    passes = {a: [], b: []}
+    for name in (a, b, b, a):
+        passes[name].append(events_and_host(torch, calls[name]))
+    return {name: {"ms": min(r["ms"] for r in runs), "host_ms": min(r["host_ms"] for r in runs),
+                   "ms_all": [r["ms"] for r in runs], "host_ms_all": [r["host_ms"] for r in runs]}
+            for name, runs in passes.items()}
+
+
+def scene_json(res: dict, timing: dict, card: str) -> dict:
+    """The `scene` line: phase 18's checks and times, with the card."""
+    checks = {k: v for k, v in res.items() if k not in ("ocean", "spray", "cam")}
+    return {"scene": dict(card=card, map_size=SCENE["map_size"], cascades=3,
+                          map_dtype=SCENE["map_dtype"], particles=SCENE["particles"],
+                          frames=SCENE["frames"], tier="interactive", **checks, **timing)}
+
+
+def phase_scene_timing(torch, dev, res: dict, card: str) -> dict:
+    """Phase 18 timing at each SCENE_SIZES: update, spray advance, the
+    render without and with spray (in turns) and the splat alone, the whole
+    loop through FramePipeline and fetching after each render (in turns);
+    launches a frame and the device's busy share (torch.profiler), peak
+    device memory."""
+    from godotoceanwaves_tpu_torch.models import shading
+    from godotoceanwaves_tpu_torch.models.viewport import FramePipeline
+    ocean, spray, cam = res["ocean"], res["spray"], res["cam"]
+    dt = SCENE["dt"]
+    scales = ocean.params.map_scales()
+    out = {"update": events_and_host(torch, lambda: ocean.update(dt))}
+    maps = ocean.maps
+    out["advance"] = events_and_host(torch, lambda: spray.advance(maps, scales, dt))
+    attrs = spray.advance(maps, scales, dt)
+    log(f"[18] update {out['update']['ms']:.3f} ms (events), {out['update']['host_ms']:.3f} "
+        f"(host clock); spray advance ({SCENE['particles']}) {out['advance']['ms']:.3f} / "
+        f"{out['advance']['host_ms']:.3f}; card {card}")
+    wc, fc = ocean.water_color, ocean.foam_color
+    for width, height in SCENE_SIZES:
+        r = scene_renderer(width, height)
+        leg = {}
+        leg.update(in_turns(torch, {
+            "render": lambda: r.render(maps, scales, wc, fc, cam, SCENE_PITCH, SCENE_YAW),
+            "render_spray": lambda: r.render(maps, scales, wc, fc, cam, SCENE_PITCH, SCENE_YAW,
+                                             spray_attrs=attrs)}))
+        img = r._scene(maps, scales, tuple(map(float, wc)), tuple(map(float, fc)), cam,
+                       SCENE_PITCH, SCENE_YAW, 70.0)
+        splat = lambda: shading.splat_spray(img, attrs["position"], attrs["scale"],
+                                            attrs["dissolve"], attrs["visible"], camera_pos=cam,
+                                            pitch_deg=SCENE_PITCH, yaw_deg=SCENE_YAW,
+                                            foam_color=tuple(map(float, fc)),
+                                            custom_z=attrs["custom_z"])
+        leg["splat"] = events_and_host(torch, splat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        splat()
+        torch.cuda.synchronize()
+        leg["splat_peak_GiB"] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        rows = SCENE["particles"] * len(shading._puff_lobes())
+        leg["splat_gflop"] = 2.0 * rows * height * width / 1e9
+        pipe = FramePipeline()
+        leg.update(in_turns(torch, {
+            "loop_pipelined": lambda: pipe.push(scene_frame(ocean, spray, r, cam)[0]),
+            "loop_fetch": lambda: scene_frame(ocean, spray, r, cam)[0].cpu().numpy()}))
+        pipe.flush()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        scene_frame(ocean, spray, r, cam)
+        torch.cuda.synchronize()
+        leg["frame_peak_GiB"] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        leg["resident_GiB"] = base / 2 ** 30
+        prof = profile_frames(torch, lambda: scene_frame(ocean, spray, r, cam),
+                              f"{width}x{height}", leg["loop_fetch"]["host_ms"], phase=18,
+                              stem="scene_profile")
+        leg["launches_per_frame"] = prof["launches"]
+        leg["busy_ms"] = prof["busy_ms"]
+        leg["busy_share"] = prof["busy_ms"] / leg["loop_fetch"]["host_ms"]
+        try:
+            a = torch.rand((rows, height), device=dev).to(torch.bfloat16)
+            b = torch.rand((rows, width), device=dev).to(torch.bfloat16)
+            leg["splat_product_fp32_ms"] = events_and_host(
+                torch, lambda: a.float().T @ b.float())["ms"]
+            leg["splat_product_bf16_out_fp32_ms"] = events_and_host(
+                torch, lambda: torch.mm(a.T, b, out_dtype=torch.float32))["ms"]
+        except (TypeError, RuntimeError) as exc:
+            leg["splat_product_bf16_out_fp32_ms"] = None
+            log(f"[18] torch.mm(out_dtype=float32) unavailable: {str(exc)[:200]}")
+        out[f"{width}x{height}"] = leg
+        fmt = lambda d: (f"{d['ms']:.3f} ms (events) / {d['host_ms']:.3f} (host clock)" +
+                         (f" [passes {', '.join(f'{v:.2f}' for v in d['ms_all'])} / "
+                          f"{', '.join(f'{v:.2f}' for v in d['host_ms_all'])}]"
+                          if "ms_all" in d else ""))
+        log(f"[18] {width}x{height}: render {fmt(leg['render'])}; with spray "
+            f"{fmt(leg['render_spray'])}; splat alone {fmt(leg['splat'])} "
+            f"({leg['splat_gflop']:.1f} GFLOP, peak {leg['splat_peak_GiB']:.3f} GiB above the "
+            f"resident); loop through FramePipeline {fmt(leg['loop_pipelined'])}; loop fetching "
+            f"after each render {fmt(leg['loop_fetch'])}; frame peak {leg['frame_peak_GiB']:.3f} "
+            f"GiB above {leg['resident_GiB']:.3f} resident; {leg['launches_per_frame']:.0f} "
+            f"launches a frame, device busy {leg['busy_ms']:.3f} ms = {leg['busy_share']:.1%} of "
+            f"the fetching loop's frame; the splat's product alone: fp32 "
+            f"{leg.get('splat_product_fp32_ms') or 0:.3f} ms, bf16 -> fp32 "
+            f"{leg['splat_product_bf16_out_fp32_ms'] or 0:.3f} ms; card {card}")
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1622,8 +1996,14 @@ def main(argv: list) -> int:
                                   for k, v in alone.items()}}))
         log(card_line())
         return 0
+    if argv == ["--scene"]:
+        # phase 18 only: the scene frame loop, its checks and its timing
+        scene = phase_scene(torch, T, dev)
+        log(json.dumps(scene_json(scene, phase_scene_timing(torch, dev, scene, card), card)))
+        log(card_line())
+        return 0
     if argv:
-        print(f"usage: {sys.argv[0]} [--alone]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--alone | --scene]", file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -1649,6 +2029,9 @@ def main(argv: list) -> int:
     for key, res in alone.items():
         check(res["ops_per_call"] == 1,
               f"{key}: a wrapper call ran {res['ops_per_call']} device operations, not one kernel")
+    torch.cuda.empty_cache()
+    scene = phase_scene(torch, T, dev)
+    scene_line = scene_json(scene, phase_scene_timing(torch, dev, scene, card), card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -1664,6 +2047,7 @@ def main(argv: list) -> int:
                               map_size=MAIN_SIZE, frames=SHARD_FRAMES,
                               launches_K3=shard4["launches"], max_abs_err_vs_K1=shard4["max_abs"]),
     }}))
+    log(json.dumps(scene_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

@@ -24,8 +24,9 @@ Session layer
 -------------
 `Ocean` mirrors the orchestrator `Water` (water.gd): dirty-bit spectrum
 regeneration, the `updates_per_second` scheduler with frame-skip delta
-compensation (water.gd:75-82) and optional one-cascade-per-call staggering
-(wave_generator.gd:56-63).
+compensation (water.gd:75-82), optional one-cascade-per-call staggering
+(wave_generator.gd:56-63), runtime cascade add/remove (`set_cascades`), the
+session's global water/foam colours and `checkpoint` / `restore`.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch
 
 from ..ops import fft, fused_step, initial_state, planes_fft, spectra, strip_step
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
+from . import shading
 from .cascade import (CascadeParams, SimConfig, default_cascades, require_device,
                       stack_cascades)
 
@@ -306,6 +308,11 @@ class Ocean:
             params = stack_cascades(params)
         self.config = SimConfig(map_size=map_size, **config_kwargs)
         self.params = params.to(self.device)
+        # Global water/foam colours (water.gd:14-18): project-wide shader
+        # globals in the reference (project.godot:60-81); the session owns the
+        # one copy every render surface reads. Linear RGB, host NumPy.
+        self.water_color = np.asarray(shading.DEFAULT_WATER_COLOR, np.float32)
+        self.foam_color = np.asarray(shading.DEFAULT_FOAM_COLOR, np.float32)
         # session RNG for runtime cascade re-seeding (water.gd:68-69, seed 1234)
         self._rng = np.random.RandomState(1234)
         self._time = 0.0
@@ -357,6 +364,29 @@ class Ocean:
             if name in self._SPECTRUM_FIELDS:
                 self._dirty[index] = True
         self.params = self.params.replace(**new)
+
+    def set_cascades(self, params: CascadeParams | Sequence[CascadeParams],
+                     reseed: bool = True) -> None:
+        """Replace the whole cascade stack at runtime (add/remove cascades).
+
+        The reference's `parameters` setter (water.gd:22-35): every cascade
+        draws a fresh spectrum seed from the session RNG and restarts at
+        time 120 + pi*i (water.gd:31-32); spectra, foam and map buffers
+        rebuild. reseed=False keeps the given seeds (times still restart).
+        """
+        if isinstance(params, (list, tuple)):
+            params = stack_cascades(params)
+        params = params.to(self.device)
+        c = params.num_cascades
+        if reseed:
+            seeds = self._rng.randint(-10000, 10001, (c, 2))
+            params = params.replace(spectrum_seed=torch.as_tensor(
+                seeds, dtype=torch.int32, device=self.device))
+        self.params = params
+        self.state = init_state(self.config, params)
+        self._dirty = np.zeros(c, bool)
+        self._pending = []
+        self.maps = _zero_maps(self.config, c, self.device)
 
     def regenerate_dirty(self) -> None:
         """Re-run spectrum generation for DIRTY cascades only
@@ -431,11 +461,64 @@ class Ocean:
         normal[idx] = nm
         self.maps = OceanMaps(displacement=disp, normal=normal)
 
-    def resize(self, map_size: int) -> None:
+    def resize(self, map_size: int, clear_jit_caches: bool = True) -> None:
         """Change the map resolution: full state rebuild, params preserved
-        (the reference's map_size setter, water.gd:38-41)."""
+        (the reference's map_size setter, water.gd:38-41).
+
+        `clear_jit_caches` is accepted for the JAX package's callers and
+        ignored: PyTorch runs eagerly and keeps no compiled executables
+        per shape.
+        """
         self.config = dataclasses.replace(self.config, map_size=map_size)
         self.state = init_state(self.config, self.params)
         self._dirty[:] = False
         self._pending = []
+        self.maps = _zero_maps(self.config, self.num_cascades, self.device)
+
+    # --- checkpoint / resume (SURVEY.md section 5.4) ---
+
+    def checkpoint(self) -> dict[str, Any]:
+        """Snapshot of all cross-frame state: the state and params as CPU
+        tensors (the fp32 planes as they are; no complex leaves), the
+        scheduler and the colours."""
+        from ..utils.hostio import device_get_tree
+        return {
+            "map_size": self.config.map_size,
+            "num_cascades": self.num_cascades,
+            "state": device_get_tree(self.state),
+            "params": device_get_tree(self.params),
+            "time": self._time,
+            "next_update_time": self._next_update_time,
+            "pending": list(self._pending),
+            "round_dt": self._round_dt,
+            "water_color": [float(v) for v in self.water_color],
+            "foam_color": [float(v) for v in self.foam_color],
+        }
+
+    def restore(self, snapshot: dict[str, Any]) -> None:
+        """Restore a `checkpoint()` snapshot onto this session's device.
+
+        Raises if the cascade count differs; resizes if the map size does.
+        The persistent map buffers reset to zeros.
+        """
+        from ..utils.hostio import device_put_tree
+        size = snapshot.get("map_size", self.config.map_size)
+        cascades = snapshot.get("num_cascades", self.num_cascades)
+        if cascades != self.num_cascades:
+            raise ValueError(
+                f"snapshot has {cascades} cascades, session has "
+                f"{self.num_cascades}; rebuild the Ocean with matching params")
+        if size != self.config.map_size:
+            self.resize(size)
+        self.state = device_put_tree(snapshot["state"], self.device)
+        self.params = device_put_tree(snapshot["params"], self.device)
+        self._time = snapshot["time"]
+        self._next_update_time = snapshot["next_update_time"]
+        self._pending = list(snapshot.get("pending", []))
+        self._round_dt = snapshot.get("round_dt", 0.0)
+        if "water_color" in snapshot:
+            self.water_color = np.asarray(snapshot["water_color"], np.float32)
+        if "foam_color" in snapshot:
+            self.foam_color = np.asarray(snapshot["foam_color"], np.float32)
+        self._dirty[:] = False
         self.maps = _zero_maps(self.config, self.num_cascades, self.device)

@@ -716,3 +716,147 @@ def sky_color_rough(d: torch.Tensor, light: torch.Tensor,
     sun = lobe(6000.0, 3.0 * ones) + 0.35 * lobe(80.0, ones)
     scatter = lobe(6.0, ones)
     return base + sun_col * sun + _const((0.18, 0.14, 0.08), dev) * scatter
+
+
+# --- spray billboards (sea_spray.gdshader) -----------------------------------
+
+@functools.lru_cache(maxsize=2)
+def _puff_lobes(n_lobes: int = 6) -> np.ndarray:
+    """(L, 4) [off_x, off_y, sigma_frac, amplitude] lobe table for the
+    procedural spray sprite (the JAX package's table, bit for bit).
+
+    The reference's billboard samples an irregular puff albedo texture
+    (sea_spray.gdshader:27,31 x mat_spray.tres sea_spray.png). Here the
+    puff is a fixed mixture of isotropic gaussian lobes (a core plus an
+    offset ring, some negative to chew the rim), so every lobe is
+    separable and the whole composite is one outer-product contraction
+    with L x the particle count. Deterministic (fixed seed), normalized to
+    unit peak on a dense probe grid. Shared: never write to it.
+    """
+    rng = np.random.default_rng(7)
+    lobes = [(0.0, 0.0, 1.0, 1.0)]
+    for i in range(n_lobes - 1):
+        ang = 2 * np.pi * i / (n_lobes - 1) + rng.uniform(-0.4, 0.4)
+        r = rng.uniform(0.5, 0.85)
+        neg = i % 3 == 2
+        amp = -0.4 if neg else rng.uniform(0.35, 0.6)
+        sig = rng.uniform(0.4, 0.62)
+        lobes.append((r * np.cos(ang), r * np.sin(ang), sig, amp))
+    tab = np.asarray(lobes, np.float32)
+    # normalize: unit peak over a probe grid (so max_alpha keeps its meaning)
+    xs = np.linspace(-2.0, 2.0, 81)
+    gx, gy = np.meshgrid(xs, xs)
+    field = sum(a * np.exp(-((gx - ox) ** 2 + (gy - oy) ** 2) / (2 * s * s))
+                for ox, oy, s, a in tab)
+    tab[:, 3] /= max(float(field.max()), 1e-6)
+    return tab
+
+
+def splat_spray(
+    img: torch.Tensor,            # (H, W, 3) linear RGB to composite onto
+    positions: torch.Tensor,      # (P, 3) world positions (spray_step output)
+    scales: torch.Tensor,         # (P, 3)
+    dissolve: torch.Tensor,       # (P,) CUSTOM.a driver
+    visible: torch.Tensor,        # (P,) bool
+    camera_pos=(0.0, 12.0, 0.0),
+    pitch_deg=-12.0,
+    yaw_deg=0.0,
+    fov_deg=70.0,
+    foam_color=DEFAULT_FOAM_COLOR,
+    max_alpha: float = 0.666,
+    custom_z=None,                # (P,) dissolve offset (CUSTOM.z), optional
+    sprite: str = "puff",         # "puff" (textured look) | "gaussian" (1 lobe)
+) -> torch.Tensor:
+    """Composite spray particles as scale-aware soft billboards
+    (sea_spray.gdshader), the JAX package's `splat_spray`.
+
+    View-aligned gaussian sprites whose screen footprint follows the
+    particle's world scale and distance (billboards keep model scale,
+    sea_spray.gdshader:20-21), alpha by the shader's distance fade x
+    dissolve envelope; with `custom_z`, the scrolling-noise dissolve cut
+    (:30-33, a per-particle procedural noise phase) sculpts the puff
+    edges. Brightness uses the foam-colour boost (:27-28). The projection
+    is the renderers' camera; pose arguments may be numbers or tensors on
+    the image's device, `foam_color` host numbers.
+
+    The sprites are separable gaussian lobes, so the composite is one
+    contraction overlay = (wy * alpha)^T @ wx over (lobes x particles)
+    rows, with the JAX package's precision: both operands rounded to
+    bf16, the products and the sum in fp32. On a CUDA device that is a
+    bf16 matrix product with an fp32 output (`torch.mm(..., out_dtype=)`,
+    tensor cores); the CPU has no such product, so there the rounded
+    operands are widened to fp32, which is exact in every product (an
+    8-bit by 8-bit significand fits fp32). Only the order of the fp32 sum
+    differs between the two.
+    """
+    from .geometry import _scalar, _vec
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    cam = _vec(camera_pos, dev)
+    pitch = torch.deg2rad(_scalar(pitch_deg, dev))
+    tan_half = torch.tan(torch.deg2rad(_scalar(fov_deg, dev)) / 2)
+    v = positions - cam
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    yaw = torch.deg2rad(_scalar(yaw_deg, dev))
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    # camera basis (render_ocean / FlyCamera.basis): pitch about x, then yaw
+    # about y; yaw = 0 gives f = (0, sin p, cos p)
+    f = torch.stack([-sy * cp, sp, cy * cp])
+    u = torch.stack([-sy * -sp, cp, cy * -sp])
+    r = torch.stack([cy, torch.zeros_like(cy), sy])
+    z = v @ f
+    x = v @ r
+    y = v @ u
+    in_front = z > 0.5
+    px = (x / (z * tan_half) + 1.0) * 0.5 * w
+    aspect = h / w
+    py = (0.5 - y / (z * tan_half * 2 * aspect)) * h
+    dist = _norm(v)[..., 0]
+
+    fade = max_alpha * (1.0 - torch.exp(-dist * 0.04))
+    if custom_z is None:
+        alpha = fade * torch.clamp(dissolve, 0.0, 1.0)
+    else:
+        # (fade + offset)/2 - noise, clamped: the dissolve cut; the
+        # scrolling noise texture becomes a per-particle phase scroll
+        noise = 0.45 * torch.remainder(custom_z * 7.31 + dissolve * 1.37, 1.0)
+        alpha = fade * torch.clamp_min(
+            (torch.clamp(dissolve, 0.0, 1.0) + custom_z) * 0.5 - noise, 0.0)
+    alpha = alpha * torch.clamp(scales[:, 0], 0.0, 1.0)
+    alpha = torch.where(visible & in_front, alpha, 0.0)
+
+    # screen-space sprite radius from the world-scale billboard size
+    focal = (w * 0.5) / tan_half
+    world_r = 0.5 * torch.abs(scales).mean(-1)
+    sigma = torch.clamp(world_r * focal / torch.clamp_min(z, 0.5), 0.6, 2.2)
+
+    if sprite == "puff":
+        # the procedural sea_spray.png: a fixed lobe mixture, rotated per
+        # particle slot (golden-angle hash) so puffs vary across billboards
+        tab = _const(tuple(map(tuple, _puff_lobes().tolist())), dev)   # (L, 4)
+        theta = torch.arange(px.shape[0], dtype=torch.float32, device=dev) * 2.3999632
+        ct, st = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+        off = sigma[:, None] * 1.3                          # lobe ring radius
+        cx = px[:, None] + off * (ct * tab[:, 0] - st * tab[:, 1])
+        cy_ = py[:, None] + off * (st * tab[:, 0] + ct * tab[:, 1])
+        sig = sigma[:, None] * tab[:, 2]
+        amp = alpha[:, None] * tab[:, 3]
+        px_, py_ = cx.reshape(-1), cy_.reshape(-1)
+        sigma_, amp_ = sig.reshape(-1), amp.reshape(-1)
+    else:
+        px_, py_, sigma_, amp_ = px, py, sigma, alpha
+    inv2s2 = (1.0 / (2.0 * sigma_ * sigma_))[:, None]
+    rows = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    cols = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    wy = torch.exp(-torch.square(rows[None, :] - py_[:, None]) * inv2s2)
+    wx = torch.exp(-torch.square(cols[None, :] - px_[:, None]) * inv2s2)
+    a = (wy * amp_[:, None]).to(torch.bfloat16)
+    b = wx.to(torch.bfloat16)
+    if dev.type == "cuda":
+        product = torch.mm(a.T, b, out_dtype=torch.float32)
+    else:
+        product = a.float().T @ b.float()
+    overlay = torch.clamp(product, 0.0, 1.0)[..., None]
+    boost = (_const(tuple(float(c) for c in np.asarray(foam_color, np.float32).reshape(3)), dev)
+             * _const((1.65, 1.75, 1.65), dev))
+    return torch.clamp(img * (1 - overlay) + boost * overlay, 0.0, 1.0)

@@ -2,10 +2,11 @@
 
 Copy of the JAX package's `utils/clipmap.py` NumPy twin: the reference's
 pre-baked clipmap OBJ assets (C19: clipmap_high/low, a 512 x 512 m graded
-plane) generated procedurally. The port has no native backend: the JAX
-package's `native/clipmap.cpp` computes the same double-precision ladder,
-and the tests pin `models.geometry.clipmap_axis_coords` bit-equal to the JAX
-function that uses it.
+plane) generated procedurally. The port builds no native code:
+`build_clipmap` is the NumPy twin under the JAX package's name and
+signature (the JAX package's `native/clipmap.cpp` computes the same
+double-precision ladder), and the tests pin it, and
+`models.geometry.clipmap_axis_coords`, to the JAX functions.
 """
 from __future__ import annotations
 
@@ -47,6 +48,15 @@ def build_clipmap_numpy(levels: int = 4, center_res: int = 64,
     d = c + 1
     idx = np.stack([np.stack([a, c, b], -1), np.stack([b, c, d], -1)], 1)
     return verts, idx.reshape(-1, 3).astype(np.uint32)
+
+
+def build_clipmap(levels: int = 4, center_res: int = 64, ring_cells: int = 16,
+                  extent: float = 512.0, prefer_native: bool = True):
+    """Graded clipmap plane (the reference's 512 m mesh, water.gd:8-9):
+    (verts (V, 2) float32 xz, indices (T, 3) uint32). `prefer_native` is
+    accepted for the JAX package's callers; the port always builds the
+    mesh in NumPy."""
+    return build_clipmap_numpy(levels, center_res, ring_cells, extent)
 
 
 def snap_to_tile(camera_xz, tile_size: float = 1.0):

@@ -5,11 +5,15 @@ Both packages then compute from identical inputs:
     leaves = {f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}
     params = params_from_numpy(leaves, device="cpu")
 
-`params_from_numpy`, `state_from_numpy` and `maps_from_numpy` default to the
-card, like the port's other entry points, and raise when none is present:
-pass `device="cpu"` to stay on the CPU. A multipatch `CascadeParams` (P, C) crosses the same way; a sharded JAX state
-crosses gathered to global NumPy arrays and is cut again over the port's
-mesh (`sharded_state_from_numpy`).
+A JAX `SprayState` crosses with `spray_state_from_numpy`, so both packages
+advance the same particles.
+
+`params_from_numpy`, `state_from_numpy`, `maps_from_numpy` and
+`spray_state_from_numpy` default to the card, like the port's other entry
+points, and raise when none is present: pass `device="cpu"` to stay on the
+CPU. A multipatch `CascadeParams` (P, C) crosses the same way; a sharded JAX
+state crosses gathered to global NumPy arrays and is cut again over the
+port's mesh (`sharded_state_from_numpy`).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from ..models.cascade import CascadeParams, require_device
 from ..models.ocean import OceanMaps, OceanState
+from ..models.spray import SprayState
 from ..parallel.sharding import Mesh, Sharded, shard_state
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -58,6 +63,19 @@ def sharded_state_from_numpy(leaves: Mapping[str, np.ndarray], mesh: Mesh) -> Sh
 
 def state_to_numpy(state: OceanState) -> dict[str, np.ndarray]:
     """{field: ndarray} of an `OceanState`, copied to the host."""
+    return {f.name: getattr(state, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(state)}
+
+
+def spray_state_from_numpy(leaves: Mapping[str, np.ndarray],
+                           device: torch.device | str = "cuda") -> SprayState:
+    """`SprayState` from a {field: ndarray} dict (float32 fields, bool
+    active / has_started, int32 cycle; dtypes kept)."""
+    return SprayState(**_tensors(SprayState, leaves, device))
+
+
+def spray_state_to_numpy(state: SprayState) -> dict[str, np.ndarray]:
+    """{field: ndarray} of a `SprayState`, copied to the host."""
     return {f.name: getattr(state, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(state)}
 

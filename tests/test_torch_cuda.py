@@ -12,7 +12,8 @@ maps <= 1e-4 relative RMS, 2-byte maps <= 1e-3 (displacement, relative) and
 abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
 1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean;
 the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
-torch.fft at every N = 16..8192.
+torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
+<= 2e-3 max abs (both round the composite's operands to bf16).
 """
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ import torch
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
 from godotoceanwaves_tpu_torch.models import geometry, shading
+from godotoceanwaves_tpu_torch.models.viewport import FramePipeline, SceneRenderer, SpraySession
 from godotoceanwaves_tpu_torch import parallel
 from godotoceanwaves_tpu_torch.ops import (fft, fused_step, march, planes_fft, rows_fft,
                                            strip_step, tap)
@@ -500,3 +502,65 @@ def test_sharded_fft_raises_outside_the_rows_kernel(card):
     shards = [torch.zeros((1, 2, 4, 8), device=card) for _ in range(2)]
     with pytest.raises(NotImplementedError, match="rows"):
         parallel.sharding.ifft2_planes_sharded(shards)
+
+
+def test_splat_spray_on_card_matches_cpu(card):
+    """The splat's bf16-rounded operands and fp32 product on the card
+    against the same function on the CPU, every particle visible."""
+    gen = torch.Generator().manual_seed(11)
+    p = 4096
+    img = torch.rand((180, 320, 3), generator=gen)
+    pos = torch.stack([torch.rand(p, generator=gen) * 60 - 30, torch.rand(p, generator=gen) * 3,
+                       torch.rand(p, generator=gen) * 80 + 2], -1)
+    scale = torch.rand((p, 3), generator=gen) * 1.8 + 0.2
+    dissolve, custom_z = torch.rand(p, generator=gen), torch.rand(p, generator=gen)
+    visible = torch.ones(p, dtype=torch.bool)
+    args = (img, pos, scale, dissolve, visible)
+    kw = dict(camera_pos=(0.0, 6.0, 0.0), pitch_deg=-9.0, yaw_deg=4.0)
+    want = shading.splat_spray(*args, custom_z=custom_z, **kw)
+    got = shading.splat_spray(*(a.to(card) for a in args), custom_z=custom_z.to(card), **kw)
+    assert (want - img).abs().max() > 0.1
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
+
+
+def test_frame_pipeline_on_card_returns_each_frame_once_in_order(card):
+    """Frames rendered on the card come back through pinned buffers in
+    order, each once, while later frames are queued; a returned array is
+    the caller's own (the buffers keep rotating under it)."""
+    pipe = FramePipeline()
+    frames = [torch.full((36, 64, 3), i, dtype=torch.uint8, device=card) for i in range(6)]
+    out = [pipe.push(f) for f in frames]
+    out.append(pipe.flush())
+    assert out[0] is None and pipe.flush() is None
+    for i, host in enumerate(out[1:]):
+        assert isinstance(host, np.ndarray) and host.shape == (36, 64, 3)
+        assert (host == i).all(), i
+    assert [int(h[0, 0, 0]) for h in out[1:]] == list(range(6))
+
+
+def test_scene_frame_with_spray_on_card(card):
+    """One scene frame with spray on the card: one K5 launch, uint8 RGB,
+    no host sync in the update, the spray advance and the render."""
+    ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
+    maps = ocean.update(1 / 30)
+    scales = ocean.params.map_scales()
+    spray = SpraySession(num_particles=1024, device=card)
+    spray.advance(maps, scales, 1 / 30)
+    r = SceneRenderer(128, 72, mesh_quality="low", march_steps=32, bisect_steps=6,
+                      shade_res=2, bracket_res=128, invert_res=256)
+    cam = torch.tensor([0.0, 12.0, 0.0], device=card)
+    r.render(maps, scales, ocean.water_color, ocean.foam_color, cam, -12.0, 0.0,
+             spray_attrs=spray.advance(maps, scales, 1 / 30))
+    torch.cuda.synchronize()
+    before = tap.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        maps = ocean.update(1 / 30)
+        attrs = spray.advance(maps, scales, 1 / 30)
+        img = r.render(maps, scales, ocean.water_color, ocean.foam_color, cam, -12.0, 0.0,
+                       spray_attrs=attrs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tap.LAUNCHES - before == 1
+    assert img.dtype == torch.uint8 and tuple(img.shape) == (72, 128, 3)

@@ -1,5 +1,6 @@
-"""The PyTorch port steps and renders, unsharded and sharded, with JAX, flax and
-the JAX package unimportable."""
+"""The PyTorch port steps and renders, unsharded and sharded, and runs the
+scene frame loop (spray, scene renderer, live viewer), with JAX, flax and the
+JAX package unimportable."""
 import subprocess
 import sys
 import textwrap
@@ -50,6 +51,34 @@ def test_port_steps_and_renders_sharded_without_jax():
                                                march_steps=4, bisect_steps=3, shade_res=2)
         assert img.shape == (16, 32, 3) and bool(img.isfinite().all())
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_scene_frame_loop_without_jax():
+    code = textwrap.dedent("""
+        import io, sys
+        for name in ("jax", "jaxlib", "flax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import godotoceanwaves_tpu_torch as T
+        from godotoceanwaves_tpu_torch.models import SceneRenderer, SpraySession
+        from godotoceanwaves_tpu_torch.utils import LiveViewer
+        ocean = T.Ocean(map_size=16, updates_per_second=0, device="cpu")
+        maps = ocean.update(0.02)
+        scales = ocean.params.map_scales()
+        spray = SpraySession(num_particles=64, device="cpu")
+        attrs = spray.advance(maps, scales, 0.5)
+        assert attrs["position"].shape == (64, 3)
+        r = SceneRenderer(32, 16, mesh_quality="low", march_steps=4, bisect_steps=3)
+        img = r.render(maps, scales, ocean.water_color, ocean.foam_color, (0.0, 8.0, 0.0),
+                       -12.0, 0.0, spray_attrs=attrs)
+        assert img.shape == (16, 32, 3) and str(img.dtype) == "torch.uint8"
+        viewer = LiveViewer(ocean, cols=8, rows=4, input_fn=lambda: "", output=io.StringIO(),
+                            spray=True, spray_particles=16)
+        assert "\\x1b[38;2;" in viewer.frame()
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
     """)
