@@ -1696,7 +1696,7 @@ def phase_scene(torch, T, dev) -> dict:
                                    for f in frames), "the pipeline lost or reshaped a frame")
     vis = torch.stack(visible).cpu().numpy()
     log(f"[18] visible particles a frame: min {int(vis.min())}, mean {vis.mean():.1f}, max "
-        f"{int(vis.max())} of {SCENE['particles']}")
+        f"{int(vis.max())} of {SCENE['particles']}; by frame {[int(v) for v in vis]}")
     moved = float(np.mean([np.abs(frames[i].astype(np.int16) - frames[i - 1]).mean()
                            for i in range(1, n)]))
     means = [float(f.mean()) for f in frames]
@@ -1712,8 +1712,8 @@ def phase_scene(torch, T, dev) -> dict:
     check(0.05 <= sky <= 0.6, f"implausible sky share {sky}")
     check(20.0 <= min(means) and max(means) <= 235.0, "frames implausibly dark or bright")
     check(moved > 0.05, "the frames do not change: the loop is not animating")
-    out.update(launches=counts, visible_min=int(vis.min()), visible_mean=float(vis.mean()),
-               visible_max=int(vis.max()), sky_share=sky, frame_change=moved)
+    out.update(launches=counts, visible_by_frame=[int(v) for v in vis],
+               visible_mean=float(vis.mean()), sky_share=sky, frame_change=moved)
 
     # the spray composite on the card vs the CPU, every particle visible and
     # at least 0.5 m across (a particle that never activated has scale <= 0)
