@@ -100,6 +100,22 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     and as a bf16 product with an fp32 output), the loop through
     `FramePipeline` and fetching after each render; launches a frame and
     the device's busy share (torch.profiler), peak device memory.
+19. The browser viewer (`--web` runs phases 1 and 19 only):
+    `WebViewer(Ocean(map_size=1024, map_dtype="bfloat16"), fps=240,
+    width=640, height=360, spray=True)` over localhost, the port's
+    counterpart of scripts/probe_webviewer.py: the first frames, `/` and
+    `/frame.png`, K1 and K5 launched (lower bounds: the sim thread and the
+    reconfiguration worker both count); served frames/s over 10 s windows
+    of the standard-library PNG at the rgb and yuv420 wires, frame_batch 1
+    and 4, and 1280x720 at render_scale=2, then of the encoder the viewer
+    picks where it runs (JPEG where PIL writes it); `_frame_bytes` alone
+    on a real frame of each, and the PNG's zlib levels and row filters;
+    every panel edit read back from /state; map_size 1024 -> 512 -> 1024
+    and render_tier interactive -> performance -> interactive while
+    serving (frames during each swap, /state within 2 s, the swap within
+    30 s); a checkpoint restored into a second viewer on a fresh Ocean
+    (spray bit-equal, camera and clocks equal); `demo_torch.py --web
+    --spray` served and stopped.
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -107,7 +123,8 @@ once; for K5 the distinct texels its taps touch) over the card's memory
 rate and the operations it does over the fp32 rate (HBM_TBPS,
 FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
-the sharded step, a JSON line of the scene loop, the card's name and power
+the sharded step, a JSON line of the scene loop, a JSON line of the browser
+viewer, the card's name and power
 limit, a JSON line of the kernels, then as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
@@ -189,6 +206,27 @@ TOL_SPLAT = 2e-3             # max abs, splat on the card vs the CPU (2-byte cla
 TOL_BATCH_STEP, BATCH_EQUAL = 1, 0.999   # uint8 steps; share equal (tests/test_viewport.py:246-249)
 TOL_YUV_MEAN = 6.0           # mean uint8 |delta| of the YUV420 round trip (tests/test_viewport.py:66)
 SCENE_TIMING_ITERS = 10
+# phase 19: the browser viewer on the card at scripts/probe_webviewer.py's
+# settings, uncapped (fps 240): the scene's Ocean and spray, a 640x360
+# interactive-tier frame; served frames/s over a WEB_WINDOW-second window
+# of each WEB_RATES setting (tag, viewer arguments, frame_batch, encoder):
+# the standard-library PNG forced ("png", what a machine without PIL
+# serves) at each transfer, frame_batch and surface, then the encoder the
+# viewer picks here ("auto": JPEG where PIL writes it)
+WEB = dict(map_size=1024, map_dtype="bfloat16", fps=240.0, width=640, height=360,
+           particles=32768, first_frames=5)
+WEB_WINDOW = 10.0
+WEB_720P = dict(width=1280, height=720, render_scale=2)
+WEB_RATES = (("rgb png", dict(transfer="rgb"), 1, "png"),
+             ("rgb png", dict(transfer="rgb"), 4, "png"),
+             ("yuv420 png", dict(transfer="yuv420"), 1, "png"),
+             ("yuv420 png", dict(transfer="yuv420"), 4, "png"),
+             ("1280x720 render_scale=2 png", WEB_720P, 1, "png"),
+             ("1280x720 render_scale=2 auto", WEB_720P, 1, "auto"),
+             ("640x360 auto", dict(), 1, "auto"))
+WEB_SWAP_LIMIT = 30.0        # s for a resize or tier switch to end
+WEB_STATE_LIMIT = 2.0        # s for /state to answer while one runs
+PNG_LEVELS, PNG_FILTERS, ENCODE_REPS = (0, 1, 3, 6, 9), (0, 2), 5
 # phase 14: (L, R, N) of K3; the config-5 shard at rows = 2 comes first
 ROWS_SHAPES = ((16, 1024, 2048), (16, 128, 1024), (4, 37, 16), (4, 37, 256), (4, 37, 8192))
 SHARD_ROWS_MAIN = 8          # phase 15: config 4's shape on a (1, 8) mesh
@@ -1968,6 +2006,326 @@ def phase_scene_timing(torch, dev, res: dict, card: str) -> dict:
     return out
 
 
+def web_get(port: int, path: str, timeout: float = 60.0) -> tuple:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+        return r.headers.get("Content-Type"), r.read()
+
+
+def web_state(port: int) -> dict:
+    return json.loads(web_get(port, "/state")[1])
+
+
+def web_post(port: int, body: dict) -> None:
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/set", data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        check(r.status == 200, f"POST /set {body} answered {r.status}")
+
+
+def web_wait(port: int, cond, limit: float, what: str) -> dict:
+    deadline = time.perf_counter() + limit
+    state = web_state(port)
+    while not cond(state):
+        check(time.perf_counter() < deadline, f"{what}: not within {limit:g} s")
+        time.sleep(0.05)
+        state = web_state(port)
+    return state
+
+
+def served_rate(port: int) -> tuple[float, dict]:
+    """Frames published per second over WEB_WINDOW seconds, from the
+    /state frame counter."""
+    s0, t0 = web_state(port), time.perf_counter()
+    time.sleep(WEB_WINDOW)
+    s1, t1 = web_state(port), time.perf_counter()
+    return (s1["frame"] - s0["frame"]) / (t1 - t0), s1
+
+
+def web_frame(viewer) -> np.ndarray:
+    """One frame of the viewer's live renderer from its ocean's maps, in its
+    wire format, on the host (the viewer stopped)."""
+    o = viewer.ocean
+    pos, pitch, yaw, fov = viewer._camera_args()
+    scales = o.params.map_scales()
+    attrs = viewer._spray.advance(o.maps, scales, 1 / WEB["fps"])
+    return viewer._viewport.render(o.maps, scales, o.water_color, o.foam_color, pos, pitch, yaw,
+                                   fov=fov, spray_attrs=attrs).cpu().numpy()
+
+
+def encode_times(viewer, host: np.ndarray, jpeg: bool) -> dict:
+    """`_frame_bytes` alone on a real frame, as `_publish` calls it (the
+    YUV420 unpack included), through the standard-library PNG and, where
+    PIL writes it, JPEG: mean ms over ENCODE_REPS and the body's bytes."""
+    from godotoceanwaves_tpu_torch.models.viewport import yuv420_to_ycbcr
+    from godotoceanwaves_tpu_torch.utils.webviewer import _frame_bytes
+
+    def encode(encoder):
+        if viewer._viewport.transfer == "yuv420":
+            return _frame_bytes(yuv420_to_ycbcr(host, viewer.height, viewer.width),
+                                mode="YCbCr", encoder=encoder)
+        return _frame_bytes(host, encoder=encoder)
+    out = {}
+    for encoder in ("png", "jpeg") if jpeg else ("png",):
+        body, _ = encode(encoder)
+        t0 = time.perf_counter()
+        for _ in range(ENCODE_REPS):
+            encode(encoder)
+        out[f"{encoder}_encode_ms"] = (time.perf_counter() - t0) / ENCODE_REPS * 1e3
+        out[f"{encoder}_bytes"] = len(body)
+    return out
+
+
+def png_sweep(rgb: np.ndarray, tag: str) -> dict:
+    """The standard-library PNG's zlib level and row filter on a real
+    frame: mean ms over ENCODE_REPS and bytes of each."""
+    from godotoceanwaves_tpu_torch.utils.webviewer import png_bytes
+    out = {}
+    for level in PNG_LEVELS:
+        for row_filter in PNG_FILTERS:
+            body = png_bytes(rgb, level, row_filter)
+            t0 = time.perf_counter()
+            for _ in range(ENCODE_REPS):
+                png_bytes(rgb, level, row_filter)
+            ms = (time.perf_counter() - t0) / ENCODE_REPS * 1e3
+            out[f"level {level} filter {row_filter}"] = {"ms": ms, "bytes": len(body)}
+    log(f"[19] standard-library PNG of a real {tag} frame ({rgb.nbytes} raw bytes), ms / bytes: " +
+        "; ".join(f"{k} {v['ms']:.2f} / {v['bytes']}" for k, v in out.items()))
+    return out
+
+
+def web_viewer(T, dev, **kw):
+    from godotoceanwaves_tpu_torch.utils.webviewer import WebViewer
+    ocean = T.Ocean(map_size=WEB["map_size"], map_dtype=WEB["map_dtype"], updates_per_second=0,
+                    device=dev)
+    args = dict(fps=WEB["fps"], width=WEB["width"], height=WEB["height"], spray=True,
+                spray_particles=WEB["particles"])
+    return WebViewer(ocean, **{**args, **kw})
+
+
+def web_edits(port: int, viewer) -> dict:
+    """Every panel edit while serving, each checked in /state."""
+    from godotoceanwaves_tpu_torch.utils.webviewer import PARAM_RANGES
+    for name, (lo, hi, step) in PARAM_RANGES.items():
+        value = lo + round((hi - lo) * 0.3 / step) * step
+        web_post(port, {"cascade": 0, "name": name, "value": value})
+        got = web_state(port)["cascades"][0][name]
+        check(abs(got - value) <= 1e-4 * max(1.0, abs(value)),
+              f"/set {name}={value}: /state reads {got}")
+    for want in (4, 3):
+        web_post(port, {"name": "num_cascades", "value": want})
+        check(len(web_state(port)["cascades"]) == want, f"num_cascades {want} not in /state")
+    web_post(port, {"name": "water_color", "value": [0.1, 0.3, 0.6]})
+    got = web_state(port)["water_color"]
+    check(np.allclose(got, np.array([0.1, 0.3, 0.6]) ** 2.2, atol=1e-5), f"water_color {got}")
+    cam0 = web_state(port)["camera"]
+    web_post(port, {"name": "camera_move", "value": [1, 0, 0, 0, 0.5]})
+    check(np.linalg.norm(np.subtract(web_state(port)["camera"], cam0)) > 1.0, "camera_move")
+    web_post(port, {"name": "fov", "value": 95})
+    check(web_state(port)["fov"] == 95.0, "fov")
+    for on in (False, True):
+        web_post(port, {"name": "spray", "value": on})
+        check(web_state(port)["spray"] is on, f"spray {on}")
+    f0 = web_state(port)["frame"]
+    state = web_wait(port, lambda s: s["frame"] >= f0 + 3, WEB_SWAP_LIMIT,
+                     "frames after the edits")
+    log(f"[19] edits while serving: each of the {len(PARAM_RANGES)} cascade fields, "
+        f"num_cascades 3 -> 4 -> 3, water_color, camera_move, fov, spray off and on, each read "
+        f"back from /state; frames flow on (frame {state['frame']})")
+    return {"edits": len(PARAM_RANGES) + 7}
+
+
+def web_swaps(port: int) -> dict:
+    """map_size 1024 -> 512 -> 1024 and render_tier interactive ->
+    performance -> interactive while serving: /state latency, swap time,
+    frames served during the swap."""
+    out = {}
+    for name, value in (("map_size", 512), ("map_size", WEB["map_size"]),
+                        ("render_tier", "performance"), ("render_tier", "interactive")):
+        busy = "resizing" if name == "map_size" else "retiering"
+        f0 = web_state(port)["frame"]
+        t0 = time.perf_counter()
+        web_post(port, {"name": name, "value": value})
+        lat, state = [], None
+        while state is None or state[name] != value or state[busy]:
+            check(time.perf_counter() - t0 < WEB_SWAP_LIMIT,
+                  f"{name} -> {value}: the swap did not end within {WEB_SWAP_LIMIT:g} s")
+            time.sleep(0.05)
+            t = time.perf_counter()
+            state = web_state(port)
+            lat.append(time.perf_counter() - t)
+        swap_s = time.perf_counter() - t0
+        during = state["frame"] - f0
+        after = web_wait(port, lambda s: s["frame"] > state["frame"], WEB_SWAP_LIMIT,
+                         f"frames after {name} -> {value}")
+        key = f"{name} -> {value}"
+        out[key] = {"swap_s": swap_s, "frames_during": during,
+                    "state_p50_ms": float(np.median(lat)) * 1e3, "state_max_ms": max(lat) * 1e3}
+        log(f"[19] {key}: swapped in {swap_s:.2f} s, {during} frames served meanwhile; /state "
+            f"answered in {out[key]['state_p50_ms']:.1f} ms p50, {out[key]['state_max_ms']:.1f} "
+            f"max over {len(lat)} polls; frame {after['frame']} after")
+        check(during >= 1, f"{key}: no frame served during the swap")
+        check(max(lat) < WEB_STATE_LIMIT, f"{key}: /state took {max(lat):.2f} s")
+    return out
+
+
+def web_checkpoint(T, dev, viewer) -> dict:
+    """checkpoint() of the stopped viewer, restore() into a second viewer on
+    a fresh Ocean: spray bit-equal, camera and clocks equal; the restored
+    viewer serves."""
+    import dataclasses
+    snap = viewer.checkpoint()
+    twin = web_viewer(T, dev, width=viewer.width, height=viewer.height,
+                      render_scale=viewer.render_scale, transfer=viewer.transfer)
+    twin.restore(snap)
+    a, b = viewer._spray._state, twin._spray._state
+    bit_equal = all(torch_equal(getattr(a, f.name), getattr(b, f.name))
+                    for f in dataclasses.fields(a))
+    # the position crosses as fp32, the form the renderer takes it in
+    cam = (np.array_equal(np.float32(viewer.camera.position), twin.camera.position)
+           and all(getattr(viewer.camera, k) == getattr(twin.camera, k)
+                   for k in ("pitch", "yaw", "fov_deg", "speed")))
+    clocks = (twin._spray.clock == viewer._spray.clock
+              and twin.ocean._time == viewer.ocean._time
+              and torch_equal(twin.ocean.state.time, viewer.ocean.state.time))
+    port = twin.start(port=0)
+    try:
+        f = web_wait(port, lambda s: s["frame"] >= 2, WEB_SWAP_LIMIT, "the restored viewer")
+    finally:
+        twin.stop()
+    log(f"[19] checkpoint of the stopped viewer restored into a fresh Ocean's viewer: spray state "
+        f"bit-equal {bit_equal} (cycle {tuple(b.cycle.shape)}), camera equal {cam}, spray clock "
+        f"and sim time equal {clocks}; the restored viewer served {f['frame']} frames")
+    check(bit_equal and cam and clocks, "the restored viewer differs from the checkpointed one")
+    return {"restore_spray_bit_equal": bit_equal, "restore_camera_equal": cam,
+            "restore_clocks_equal": clocks}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def web_demo(jpeg: bool) -> dict:
+    """`demo_torch.py --web --port <free port> --spray` in a subprocess: GET
+    / and /frame.png (JPEG where PIL writes it, else PNG), then stop it."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.join(ROOT, "demo_torch.py"), "--web",
+                             "--port", str(port), "--spray"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        page = None
+        while page is None:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  "demo_torch.py --web did not serve")
+            try:
+                page = web_get(port, "/", timeout=10)[1]
+            except OSError:
+                time.sleep(0.2)
+        state = web_wait(port, lambda s: s["frame"] >= 2, 120, "demo_torch.py --web frames")
+        mime, body = web_get(port, "/frame.png")
+        took = time.perf_counter() - t0
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    log(f"[19] demo_torch.py --web --port {port} --spray: page {len(page)} bytes, frame "
+        f"{state['frame']} as {mime} ({len(body)} bytes, {state['map_size']}^2 maps) after "
+        f"{took:.1f} s; stopped (rc {proc.returncode})")
+    magic = b"\xff\xd8" if jpeg else b"\x89PNG\r\n\x1a\n"
+    check(b"ocean panel" in page and body.startswith(magic)
+          and mime == ("image/jpeg" if jpeg else "image/png"),
+          f"demo_torch.py --web served no frame ({mime})")
+    return {"demo_frames": state["frame"], "demo_mime": mime, "demo_s": took}
+
+
+def phase_web(torch, T, dev, card: str) -> dict:
+    """Phase 19: the browser viewer on the card."""
+    from godotoceanwaves_tpu_torch.utils import webviewer
+    jpeg_here = webviewer.jpeg_available
+    out = {"jpeg_available": jpeg_here(), "rates": {}, "encode": {}}
+    viewer, port, sweep_frames = None, None, {}
+    try:
+        for i, (tag, kw, batch, encoder) in enumerate(WEB_RATES):
+            if i == 0 or WEB_RATES[i - 1][0] != tag:
+                # a forced PNG stands where PIL is missing: "auto" resolves
+                # the transfer and picks the encoder by `jpeg_available`
+                webviewer.jpeg_available = (lambda: False) if encoder == "png" else jpeg_here
+                viewer = web_viewer(T, dev, **kw)
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                port = viewer.start(port=0)
+                state = web_wait(port, lambda s: s["frame"] >= WEB["first_frames"], 120,
+                                 f"{tag}: first frames")
+                first_s = time.perf_counter() - t0
+                counts = read_counts()
+                mime, body = web_get(port, "/frame.png")
+                page = web_get(port, "/")[1]
+                log(f"[19] WebViewer({WEB['map_size']}^2 {WEB['map_dtype']}, {viewer.width}x"
+                    f"{viewer.height}, {tag}: {viewer._viewport.transfer} wire, spray "
+                    f"{WEB['particles']}) on port {port}: frame {state['frame']} after "
+                    f"{first_s:.2f} s; /frame.png {mime} {len(body)} bytes; / {len(page)} bytes; "
+                    f"launches {counts}")
+                n = state["frame"]
+                check(counts["K1"] >= 2 * n and counts["K5"] >= n
+                      and all(counts[k] == 0 for k in ("K2", "K3", "K4", "K6")),
+                      f"{tag}: expected at least {2 * n} K1 and {n} K5 and nothing else, "
+                      f"counted {counts}")
+                png = encoder == "png" or not out["jpeg_available"]
+                check(mime == ("image/png" if png else "image/jpeg"), f"/frame.png is {mime}")
+                check(not png or body[:8] == b"\x89PNG\r\n\x1a\n", "/frame.png is not a PNG")
+                check(b"ocean panel" in page, "/ did not serve the panel")
+                out.setdefault("first", {})[tag] = {"first_frames_s": first_s,
+                                                    "launches": counts, "mime": mime,
+                                                    "wire": viewer._viewport.transfer}
+            web_post(port, {"name": "frame_batch", "value": batch})
+            time.sleep(1.0)               # the loop changes mode at its next tick
+            reset_counts()
+            rate, state = served_rate(port)
+            counts = read_counts()
+            key = f"{tag} frame_batch={batch}"
+            out["rates"][key] = {"served_fps": rate, "loop_fps": state["fps"],
+                                 "loop_ms_frame": state["ms_frame"], "launches": counts}
+            log(f"[19] {key}: {rate:.2f} frames/s served over {WEB_WINDOW:g} s; loop "
+                f"{state['fps']:.2f} fps, {state['ms_frame']:.2f} ms/frame; launches in the "
+                f"window {counts}; card {card}")
+            check(rate > 0 and counts["K1"] > 0 and counts["K5"] > 0,
+                  f"{key}: no frames or no K1 / K5 launches")
+            if i + 1 < len(WEB_RATES) and WEB_RATES[i + 1][0] == tag:
+                continue
+            web_post(port, {"name": "frame_batch", "value": 1})
+            if i == 1:                    # the first viewer: edits and swaps while serving
+                out.update(web_edits(port, viewer))
+                out["swaps"] = web_swaps(port)
+            viewer.stop()
+            host = web_frame(viewer)
+            enc = encode_times(viewer, host, out["jpeg_available"])
+            out["encode"][tag] = enc
+            log(f"[19] {tag}: one {viewer._viewport.transfer} frame's _frame_bytes: " +
+                "; ".join(f"{k} {v:.2f}" if k.endswith("ms") else f"{k} {v}"
+                          for k, v in enc.items()))
+            if viewer._viewport.transfer == "rgb":
+                sweep_frames[f"{viewer.width}x{viewer.height}"] = host
+            if kw == WEB_720P and encoder == "png":
+                out.update(web_checkpoint(T, dev, viewer))
+            del viewer
+            torch.cuda.empty_cache()
+    finally:
+        webviewer.jpeg_available = jpeg_here
+    out["png"] = {tag: png_sweep(frame, tag) for tag, frame in sweep_frames.items()}
+    out.update(web_demo(out["jpeg_available"]))
+    out["card"] = card
+    return out
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2002,8 +2360,13 @@ def main(argv: list) -> int:
         log(json.dumps(scene_json(scene, phase_scene_timing(torch, dev, scene, card), card)))
         log(card_line())
         return 0
+    if argv == ["--web"]:
+        # phase 19 only: the browser viewer on the card
+        log(json.dumps({"web": phase_web(torch, T, dev, card)}))
+        log(card_line())
+        return 0
     if argv:
-        print(f"usage: {sys.argv[0]} [--alone | --scene]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--alone | --scene | --web]", file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -2032,6 +2395,9 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     scene = phase_scene(torch, T, dev)
     scene_line = scene_json(scene, phase_scene_timing(torch, dev, scene, card), card)
+    del scene
+    torch.cuda.empty_cache()
+    web_line = {"web": phase_web(torch, T, dev, card)}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -2048,6 +2414,7 @@ def main(argv: list) -> int:
                               launches_K3=shard4["launches"], max_abs_err_vs_K1=shard4["max_abs"]),
     }}))
     log(json.dumps(scene_line))
+    log(json.dumps(web_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

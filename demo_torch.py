@@ -14,6 +14,10 @@ Examples:
   python demo_torch.py --live                               # ANSI viewer:
       keys edit every cascade parameter at runtime (1-9 cascade, tab param,
       +/- adjust, C/c add/remove cascade, r resolution, u/U update rate, q)
+  python demo_torch.py --web --port 8000 --spray            # browser viewer:
+      open http://localhost:8000 (panel, fly camera, spray; frames as JPEG
+      where PIL writes it, else as a standard-library PNG)
+  python demo_torch.py --cpu --map-size 64 --web --width 128 --height 72
 
 `--out` and `--gif` need PIL, which is imported only for them.
 """
@@ -47,6 +51,10 @@ def main() -> None:
     ap.add_argument("--panel", action="store_true", help="print the parameter panel")
     ap.add_argument("--live", action="store_true",
                     help="interactive terminal viewer with runtime editing")
+    ap.add_argument("--web", action="store_true",
+                    help="browser viewer with the reference's editing panel "
+                         "(utils/webviewer.py)")
+    ap.add_argument("--port", type=int, default=8000, help="--web HTTP port")
     ap.add_argument("--environment", action="store_true",
                     help="apply the reference scene's fog/tonemap post "
                          "(main.tscn:22-41) to rendered frames")
@@ -127,6 +135,16 @@ def main() -> None:
         from godotoceanwaves_tpu_torch.utils.live import LiveViewer
         LiveViewer(ocean, fps=args.fps, mesh_quality=args.mesh_quality, spray=args.spray,
                    spray_particles=args.spray_particles).run()
+        return
+
+    if args.web:
+        from godotoceanwaves_tpu_torch.utils.webviewer import WebViewer
+        WebViewer(ocean, fps=min(args.fps, 30.0), width=args.width, height=args.height,
+                  flat=args.flat, mesh_quality=args.mesh_quality, spray=args.spray,
+                  spray_particles=args.spray_particles,
+                  render_tier=args.render_tier or "interactive",
+                  render_scale=args.render_scale, frame_batch=args.frame_batch,
+                  specular_aa=args.specular_aa).run(port=args.port)
         return
 
     stats = FrameStats()

@@ -5,7 +5,9 @@ parallel processes, and the objects are linked into one shared library with
 a plain C interface. That happens at first use (never at import), in the
 git-ignored `build/` directory beside the package, and the library is loaded
 with ctypes. The library name carries a hash of the sources and headers, so
-an edited kernel is rebuilt.
+an edited kernel is rebuilt. One lock guards the first load, so two threads
+that launch kernels at the same time (a viewer's frame loop and its
+reconfiguration worker) run one build between them.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -107,9 +110,17 @@ def compile_library() -> tuple[Path, str]:
     return path, text
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     path, _ = compile_library()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -13,8 +13,11 @@ abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
 1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean;
 the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
 torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
-<= 2e-3 max abs (both round the composite's operands to bf16).
+<= 2e-3 max abs (both round the composite's operands to bf16). The browser
+viewer serves frames from the card over localhost as standard-library PNGs.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -564,3 +567,35 @@ def test_scene_frame_with_spray_on_card(card):
     torch.cuda.synchronize()
     assert tap.LAUNCHES - before == 1
     assert img.dtype == torch.uint8 and tuple(img.shape) == (72, 128, 3)
+
+
+def test_web_viewer_serves_png_frames_from_the_card(card, monkeypatch):
+    """The browser viewer on the card: 5 frames served over localhost,
+    each a standard-library PNG of the viewer's size (forced, as on a machine
+    without PIL), through K1 and K5."""
+    import json
+    import struct
+    import urllib.request
+    from godotoceanwaves_tpu_torch.utils import webviewer
+    monkeypatch.setattr(webviewer, "jpeg_available", lambda: False)
+    ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
+    viewer = webviewer.WebViewer(ocean, fps=60.0, width=128, height=72, spray=True,
+                                 spray_particles=1024)
+    k1, k5 = fused_step.LAUNCHES, tap.LAUNCHES
+    port = viewer.start(port=0)
+    try:
+        get = lambda path: urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                                  timeout=60).read()
+        bodies, deadline = [], time.time() + 120
+        while len(bodies) < 5 and time.time() < deadline:
+            frame = json.loads(get("/state"))["frame"]
+            if frame >= 1 and (not bodies or frame > bodies[-1][0]):
+                bodies.append((frame, get("/frame.png")))
+            time.sleep(0.02)
+    finally:
+        viewer.stop()
+    assert len(bodies) == 5
+    for _, body in bodies:
+        assert body[:8] == b"\x89PNG\r\n\x1a\n" and body[12:16] == b"IHDR"
+        assert struct.unpack(">II", body[16:24]) == (128, 72)
+    assert fused_step.LAUNCHES > k1 and tap.LAUNCHES > k5

@@ -1,6 +1,6 @@
-"""The PyTorch port steps and renders, unsharded and sharded, and runs the
-scene frame loop (spray, scene renderer, live viewer), with JAX, flax and the
-JAX package unimportable."""
+"""The PyTorch port steps and renders, unsharded and sharded, runs the scene
+frame loop (spray, scene renderer, live viewer) and serves the browser
+viewer, with JAX, flax and the JAX package unimportable."""
 import subprocess
 import sys
 import textwrap
@@ -78,6 +78,40 @@ def test_scene_frame_loop_without_jax():
         viewer = LiveViewer(ocean, cols=8, rows=4, input_fn=lambda: "", output=io.StringIO(),
                             spray=True, spray_particles=16)
         assert "\\x1b[38;2;" in viewer.frame()
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_web_viewer_serves_without_jax():
+    code = textwrap.dedent("""
+        import json, sys, time, urllib.request
+        for name in ("jax", "jaxlib", "flax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import torch
+        import godotoceanwaves_tpu_torch as T
+        from godotoceanwaves_tpu_torch.utils.webviewer import WebViewer
+        torch.set_num_threads(1)              # a viewer's threads beside busy cores
+        ocean = T.Ocean(map_size=16, updates_per_second=0, device="cpu")
+        viewer = WebViewer(ocean, fps=30.0, width=32, height=16, spray=True,
+                           spray_particles=64)
+        port = viewer.start(port=0)
+        try:
+            get = lambda path: urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=20)
+            deadline = time.time() + 20
+            state = json.loads(get("/state").read())
+            while state["frame"] < 1 and time.time() < deadline:
+                time.sleep(0.05)
+                state = json.loads(get("/state").read())
+            assert state["frame"] >= 1 and len(state["cascades"]) == 3
+            r = get("/frame.png")
+            body = r.read()
+            assert r.headers["Content-Type"] in ("image/png", "image/jpeg") and len(body) > 50
+        finally:
+            viewer.stop()
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
