@@ -116,6 +116,22 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     30 s); a checkpoint restored into a second viewer on a fresh Ocean
     (spray bit-equal, camera and clocks equal); `demo_torch.py --web
     --spray` served and stopped.
+20. The multi-process form of `parallel/` (`--multihost` runs phases 1
+    and 20 only), each leg in workers spawned by `parallel.launch`, so this
+    process never joins a process group: (a) one NCCL worker holding
+    config 5 at full width on `make_multihost_mesh(rows=2)` over 8
+    positions of the card, 48 updates (K3 16 a frame), against one
+    controller driving the same positions (bit-equal), `gather_maps`
+    through NCCL, ms/frame in turns with one controller and its
+    `record_function` split, a checkpoint saved on (4, 2) and restored on
+    (2, 4) (one frame against the unbroken run) and on (8, 1) (K4); (b) two
+    gloo workers sharing the card, every rows group pairing them, after a
+    probe of gloo's `all_to_all_single` and `all_gather` on CUDA tensors:
+    4 frames on CUDA positions at full width where gloo takes them (else
+    CPU positions at 256^2), bit-equal to one controller, ms/frame of
+    gloo's loopback; (c) `graft_entry_torch.dryrun_multichip(8)` (K3 against
+    torch.fft on CPU positions), `examples/multichip_torch.py`, and
+    `graft_entry_torch.entry()` (K1 once).
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -124,7 +140,7 @@ rate and the operations it does over the fp32 rate (HBM_TBPS,
 FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
 the sharded step, a JSON line of the scene loop, a JSON line of the browser
-viewer, the card's name and power
+viewer, a JSON line of the multi-process legs, the card's name and power
 limit, a JSON line of the kernels, then as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
@@ -237,6 +253,10 @@ SHARDED_SPANS = ("sharded/modulate", "sharded/rows_dft", "sharded/exchange", "sh
 TOL_RESTORE_FOAM = 1e-5      # max abs (tests/test_multihost.py:59-63)
 TOL_RESTORE_DISP = 1e-4
 TOL_BANDS = 1e-4             # max abs, banded vs dense frame (tests/test_sharding.py:204)
+# phase 20: the multi-process form of parallel/, each leg in spawned workers
+MULTIHOST_GLOO_FRAMES = 4    # leg (b): ~1 GB crosses processes a frame through gloo
+MULTIHOST_CPU_SIZE = 256     # leg (b) on CPU positions where gloo refuses CUDA tensors
+MULTIHOST_TIMEOUT = 600.0    # s for a leg's workers and each collective
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -2326,6 +2346,290 @@ def phase_web(torch, T, dev, card: str) -> dict:
     out["card"] = card
     return out
 
+
+def config5_multipatch(T, par, dev):
+    """BASELINE config 5 at full width (phase 15's): 8 patches x the dual
+    wind/swell cascades at 2048^2, bf16 maps; (params, config, fp32 config)."""
+    params = par.multipatch_params(T.models.dual_wind_swell_cascades(device=dev), SHARD_PATCHES)
+    return (params, T.SimConfig(map_size=STRIP_SIZE, map_dtype="bfloat16"),
+            T.SimConfig(map_size=STRIP_SIZE))
+
+
+def multihost_nccl_leg() -> dict:
+    """Phase 20 (a), in one NCCL worker: config 5 at full width on the (4, 2)
+    mesh of `make_multihost_mesh` over 8 positions of the card, against one
+    controller driving the same positions (phase 15's run)."""
+    import torch
+    import godotoceanwaves_tpu_torch as T
+    from godotoceanwaves_tpu_torch import parallel as par
+    from godotoceanwaves_tpu_torch.parallel import multihost
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    dev = multihost.local_device()
+    params, cfg, cfg32 = config5_multipatch(T, par, dev)
+    devices = multihost.global_devices([dev] * SHARD_PATCHES)
+    mesh = par.make_multihost_mesh(rows=SHARD_ROWS_C5, devices=devices)
+    check(mesh.collective and mesh.shape == {"patch": SHARD_PATCHES // SHARD_ROWS_C5,
+                                             "rows": SHARD_ROWS_C5}, f"mesh {mesh}")
+    out = {"backend": torch.distributed.get_backend(), "world": multihost.process_count(),
+           "mesh": mesh.shape}
+    step = par.make_multichip_step(mesh, cfg)
+    state = par.make_multichip_init(mesh, cfg)(params)
+    one = par.build_mesh([dev] * SHARD_PATCHES, rows=SHARD_ROWS_C5)
+    ref_state = par.sharding.Sharded(one, [list(row) for row in state.blocks])   # read only
+    reset_counts()
+    for _ in range(CONFIG5_UPDATES):
+        state, maps = step(state, params, 0.02)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[20a] config 5, {SHARD_PATCHES} x 2 x {STRIP_SIZE}^2 bf16 on {mesh.shape} over "
+        f"{out['backend']} (world {out['world']}), {CONFIG5_UPDATES} updates -> launches {counts}")
+    check(counts == only(K3=2 * SHARD_PATCHES * CONFIG5_UPDATES),
+          f"expected {2 * SHARD_PATCHES * CONFIG5_UPDATES} K3 launches and no other, counted "
+          f"{counts}")
+    out["launches_K3"] = counts["K3"]
+
+    one_step = par.make_multichip_step(one, cfg)
+    for _ in range(CONFIG5_UPDATES):
+        ref_state, ref_maps = one_step(ref_state, params, 0.02)
+    got, want = maps.gather(dev), ref_maps.gather(dev)     # foam is the normal map's 4th channel
+    out["max_abs_vs_one_controller"] = max(max_abs(got.displacement, want.displacement),
+                                           max_abs(got.normal, want.normal))
+    log(f"[20a] maps and foam after {CONFIG5_UPDATES} updates vs one controller on the same "
+        f"positions (phase 15's run): max abs {out['max_abs_vs_one_controller']:.3e} (== 0)")
+    check(out["max_abs_vs_one_controller"] == 0.0, "the NCCL mesh differs from one controller")
+    del got, want
+    t0 = time.perf_counter()
+    host = par.gather_maps(maps)
+    out["gather_maps_s"] = time.perf_counter() - t0
+    host_ref = par.gather_maps(ref_maps)
+    out["gather_maps_equal"] = (torch.equal(host.displacement, host_ref.displacement)
+                                and torch.equal(host.normal, host_ref.normal))
+    log(f"[20a] gather_maps through {out['backend']} ({out['gather_maps_s']:.2f} s, "
+        f"{tuple(host.displacement.shape)} {host.displacement.dtype}) equals one controller's "
+        f"Sharded.gather: {out['gather_maps_equal']}")
+    check(out["gather_maps_equal"], "gather_maps through the process group differs")
+    del host, host_ref, ref_maps
+    torch.cuda.empty_cache()
+
+    def frame():
+        carry[0], _ = step(carry[0], params, 0.02)
+
+    def frame_one():
+        carry_one[0], _ = one_step(carry_one[0], params, 0.02)
+    carry, carry_one = [state], [ref_state]
+    ms, one_ms, t = turns(time_cuda, frame_one, frame, iters=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        frame()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    prof = profile_frames(torch, frame, f"multihost_nccl {mesh.shape}", host_ms, phase=20,
+                          stem="multihost_profile", ranges=SHARDED_SPANS)
+    out.update(ms_per_frame=ms, one_controller_ms_per_frame=one_ms, turns_ms=t,
+               host_ms_per_frame=host_ms, busy_ms_per_frame=prof["busy_ms"],
+               split_device_ms={k.split("/")[1]: v for k, v in prof["spans_ms"].items()})
+    log(f"[20a] the (4, 2) step over {out['backend']}: {ms:.4f} ms/frame (CUDA events, turns "
+        f"{[round(v, 4) for v in t]}), one controller {one_ms:.4f}; host clock {host_ms:.4f}; "
+        "device time by span, ms: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                 out["split_device_ms"].items()))
+    state = carry[0]
+    del carry_one, ref_state, one_step
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(ROOT, "build", "multihost_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    par.save_sharded(ckpt, state)
+    mesh_b = par.make_multihost_mesh(rows=2 * SHARD_ROWS_C5, devices=devices)
+    restored = par.restore_sharded(ckpt, mesh_b, state)
+    out["checkpoint_s"] = time.perf_counter() - t0
+    state32, maps32 = par.make_multichip_step(mesh, cfg32)(state, params, 0.02)
+    cont, cont_maps = par.make_multichip_step(mesh_b, cfg32)(restored, params, 0.02)
+    out["restore_foam_max_abs"] = max_abs(cont.gather(dev).foam, state32.gather(dev).foam)
+    out["restore_disp_max_abs"] = max_abs(cont_maps.gather(dev).displacement,
+                                          maps32.gather(dev).displacement)
+    log(f"[20a] checkpoint on {mesh.shape}, restored on {mesh_b.shape} "
+        f"({out['checkpoint_s']:.2f} s), one frame on: foam max abs "
+        f"{out['restore_foam_max_abs']:.3e} (<= {TOL_RESTORE_FOAM:g}), displacement "
+        f"{out['restore_disp_max_abs']:.3e} (<= {TOL_RESTORE_DISP:g}) vs the unbroken run")
+    check(out["restore_foam_max_abs"] <= TOL_RESTORE_FOAM
+          and out["restore_disp_max_abs"] <= TOL_RESTORE_DISP,
+          "the restored run differs from the unbroken run")
+    del restored, cont, cont_maps, state32, maps32
+    mesh_81 = par.make_multihost_mesh(rows=1, devices=devices)
+    state_81 = par.restore_sharded(ckpt, mesh_81, state)
+    shutil.rmtree(ckpt)
+    reset_counts()
+    par.make_multichip_step(mesh_81, cfg)(state_81, params, 0.02)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[20a] the same state restored on {mesh_81.shape}: one step -> launches {counts}")
+    check(counts == only(K4=2 * SHARD_PATCHES),
+          f"an (8, 1) step should be {SHARD_PATCHES} K4 steps, counted {counts}")
+    out["mesh_8x1_launches_K4"] = counts["K4"]
+    return out
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Whether gloo takes CUDA tensors in `all_to_all_single` and the list
+    `all_gather` on this torch (each rank sends its rank)."""
+    import torch
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+    x = torch.full((world,), float(rank), device=dev)
+    try:
+        got = torch.empty_like(x)
+        dist.all_to_all_single(got, x)
+        out["all_to_all_single"] = got.tolist() == [float(r) for r in range(world)]
+    except RuntimeError as e:
+        out["all_to_all_single"] = f"refused: {str(e).splitlines()[0]}"
+    try:
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        out["all_gather"] = [float(p[0]) for p in parts] == [float(r) for r in range(world)]
+    except RuntimeError as e:
+        out["all_gather"] = f"refused: {str(e).splitlines()[0]}"
+    return out
+
+
+def multihost_gloo_leg() -> dict:
+    """Phase 20 (b), in two gloo workers sharing the card: the (4, 2) mesh
+    whose rows groups pair process 0 with process 1, so every exchange
+    crosses processes; CUDA positions at config 5's full width where gloo
+    takes CUDA tensors, else CPU positions at MULTIHOST_CPU_SIZE^2. Bit-equal
+    to one controller driving the same positions."""
+    import torch
+    import godotoceanwaves_tpu_torch as T
+    from godotoceanwaves_tpu_torch import parallel as par
+    from godotoceanwaves_tpu_torch.parallel import multihost
+    dev = multihost.local_device()
+    probe = gloo_cuda_probe(dev)
+    cuda_ok = probe["all_to_all_single"] is True and probe["all_gather"] is True
+    pos = dev if cuda_ok else torch.device("cpu")
+    params, cfg, _ = config5_multipatch(T, par, pos)
+    if not cuda_ok:
+        cfg = T.SimConfig(map_size=MULTIHOST_CPU_SIZE, map_dtype="bfloat16")
+    per = SHARD_PATCHES // multihost.process_count()
+    every = multihost.global_devices([pos] * per)
+    paired = [d for k in range(per) for d in every[k::per]]     # (0, 1), (0, 1), ...
+    mesh = par.build_mesh(paired, rows=SHARD_ROWS_C5)
+    check(all(row == [0, 1] for row in mesh.processes.tolist()), f"mesh {mesh}")
+    step = par.make_multichip_step(mesh, cfg)
+    state = par.make_multichip_init(mesh, cfg)(params)
+    times = []
+    for _ in range(MULTIHOST_GLOO_FRAMES):
+        t0 = time.perf_counter()
+        state, maps = step(state, params, 0.02)
+        if pos.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    got = maps.gather(pos)                      # foam is the normal map's 4th channel
+    out = {"backend": torch.distributed.get_backend(), "world": multihost.process_count(),
+           "mesh": mesh.shape, "owners": mesh.processes.tolist(), "probe": probe,
+           "positions": str(pos), "map_size": cfg.map_size, "frames": MULTIHOST_GLOO_FRAMES,
+           "host_ms_per_frame": times}
+    if multihost.process_index() == 0:
+        one = par.build_mesh([pos] * SHARD_PATCHES, rows=SHARD_ROWS_C5)
+        one_step = par.make_multichip_step(one, cfg)
+        ref_state = par.make_multichip_init(one, cfg)(params)
+        for _ in range(MULTIHOST_GLOO_FRAMES):
+            ref_state, ref_maps = one_step(ref_state, params, 0.02)
+        want = ref_maps.gather(pos)
+        out["max_abs_vs_one_controller"] = max(max_abs(got.displacement, want.displacement),
+                                               max_abs(got.normal, want.normal))
+        check(out["max_abs_vs_one_controller"] == 0.0,
+              f"the gloo mesh differs from one controller by {out['max_abs_vs_one_controller']}")
+    return out
+
+
+def multihost_example(proc, t0: float) -> dict:
+    """The end of `examples/multichip_torch.py` on the card, started at t0
+    in a fresh interpreter (`proc`)."""
+    stdout, stderr = proc.communicate(timeout=300)
+    check(proc.returncode == 0, f"examples/multichip_torch.py failed:\n{stderr[-3000:]}")
+    lines = stdout.strip().splitlines()
+    for line in lines:
+        log(f"[20c] examples/multichip_torch.py: {line}")
+    check(any(line.startswith("mesh: {'patch': 2, 'rows': 4}") for line in lines)
+          and any("sharded render: (176, 320, 3)" in line and "finite: True" in line
+                  for line in lines), "examples/multichip_torch.py printed the wrong lines")
+    return {"s": time.perf_counter() - t0, "lines": lines}
+
+
+def phase_multihost(torch, card: str) -> dict:
+    """Phase 20: the multi-process form of `parallel/`, each leg in spawned
+    workers (`parallel.launch`), so this process never joins a group."""
+    sys.path.insert(0, ROOT)
+    import graft_entry_torch
+    from godotoceanwaves_tpu_torch.parallel import launch
+    dev = torch.device("cuda", 0)
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["a"] = launch.run(multihost_nccl_leg, 1, devices=[dev], backend="nccl",
+                          timeout_s=MULTIHOST_TIMEOUT)
+    out["a"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = launch.run(multihost_gloo_leg, 2, devices=[dev, dev], backend="gloo",
+                          timeout_s=MULTIHOST_TIMEOUT)
+    out["b"]["s"] = time.perf_counter() - t0
+    b = out["b"]
+    log(f"[20b] gloo probe with CUDA tensors: {b['probe']}; {b['world']} processes, mesh "
+        f"{b['mesh']} owners {b['owners']}, positions on {b['positions']} at "
+        f"{b['map_size']}^2: ms/frame (host clock, gloo loopback) "
+        f"{[round(v, 2) for v in b['host_ms_per_frame']]}; max abs vs one controller "
+        f"{b['max_abs_vs_one_controller']:.3e} (== 0); {b['s']:.1f} s; card {card}")
+    # the example runs beside the dry run: both only check, neither is timed
+    t0 = time.perf_counter()
+    example = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", "multichip_torch.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        dry = graft_entry_torch.dryrun_multichip(SHARD_PATCHES, device="cuda",
+                                                 timeout_s=MULTIHOST_TIMEOUT)
+        out["c"] = {"dryrun": dry, "dryrun_s": time.perf_counter() - t0}
+        log(f"[20c] dryrun_multichip({SHARD_PATCHES}) on the card: {dry['processes']} "
+            f"{dry['backend']} process(es), mesh {dry['mesh']}, K3 vs torch.fft rel RMS "
+            f"{dry['leg3_err']:.3e} at N = {dry['N']} ({dry['K3_launches']} K3 launches); "
+            f"{out['c']['dryrun_s']:.1f} s")
+        out["c"]["example"] = multihost_example(example, t0)
+    finally:
+        if example.poll() is None:
+            example.kill()
+            example.communicate()
+    fn, args = graft_entry_torch.entry()
+    reset_counts()
+    _, maps = fn(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[20c] graft_entry_torch.entry(): {tuple(maps.displacement.shape)} -> launches {counts}")
+    check(counts == only(K1=2) and bool(maps.displacement.isfinite().all()),
+          f"entry() should run K1 once (2 launches), counted {counts}")
+    out["c"]["entry_launches"] = counts
+    return out
+
+
+def multihost_json(res: dict, phase16_ms: float | None) -> dict:
+    a, b, c = res["a"], res["b"], res["c"]
+    keep = lambda d, *keys: {k: d[k] for k in keys}
+    return {"multihost": {
+        "card": res["card"],
+        "a": dict(keep(a, "backend", "world", "mesh", "launches_K3", "max_abs_vs_one_controller",
+                       "gather_maps_equal", "restore_foam_max_abs", "restore_disp_max_abs",
+                       "mesh_8x1_launches_K4", "ms_per_frame", "one_controller_ms_per_frame",
+                       "host_ms_per_frame", "busy_ms_per_frame", "split_device_ms", "s"),
+                  phase16_ms_per_frame=phase16_ms, patches=SHARD_PATCHES,
+                  map_size=STRIP_SIZE, map_dtype="bfloat16", updates=CONFIG5_UPDATES),
+        "b": keep(b, "backend", "world", "mesh", "owners", "probe", "positions", "map_size",
+                  "frames", "host_ms_per_frame", "max_abs_vs_one_controller", "s"),
+        "c": {"dryrun": keep(c["dryrun"], "backend", "processes", "mesh", "leg3_err",
+                             "K3_launches", "N"),
+              "dryrun_s": c["dryrun_s"], "example_s": c["example"]["s"],
+              "entry_launches": c["entry_launches"]},
+    }}
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2365,8 +2669,14 @@ def main(argv: list) -> int:
         log(json.dumps({"web": phase_web(torch, T, dev, card)}))
         log(card_line())
         return 0
+    if argv == ["--multihost"]:
+        # phase 20 only: the multi-process legs
+        log(json.dumps(multihost_json(phase_multihost(torch, card), None)))
+        log(card_line())
+        return 0
     if argv:
-        print(f"usage: {sys.argv[0]} [--alone | --scene | --web]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost]",
+              file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -2398,6 +2708,8 @@ def main(argv: list) -> int:
     del scene
     torch.cuda.empty_cache()
     web_line = {"web": phase_web(torch, T, dev, card)}
+    torch.cuda.empty_cache()
+    multihost_line = multihost_json(phase_multihost(torch, card), stime["step"]["ms_per_frame"])
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -2415,6 +2727,7 @@ def main(argv: list) -> int:
     }}))
     log(json.dumps(scene_line))
     log(json.dumps(web_line))
+    log(json.dumps(multihost_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

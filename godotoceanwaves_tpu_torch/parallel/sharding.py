@@ -15,8 +15,8 @@ Every other stage (spectrum generation, modulation, unpack and foam) is
 elementwise in global texel indices, so a position evaluates its own texels
 with a `y_offset` and no communication.
 
-One controller drives the whole mesh, as `jax.shard_map` does: a `Mesh` is
-an array of `torch.device`s, a `Sharded` value holds one block per mesh
+One controller may drive the whole mesh, as `jax.shard_map` does: a `Mesh`
+is an array of `torch.device`s, a `Sharded` value holds one block per mesh
 position on that position's device, and the exchange is a copy between
 positions. A device may stand at several positions: on one card,
 `build_mesh([cuda:0] * 8, rows=2)` runs all eight positions there and the
@@ -26,18 +26,30 @@ which raises for a row length it does not cover. With rows == 1 a position
 holds whole planes and its cascades take the unsharded `step`, so its map
 size picks the kernel tier as it does for one patch.
 
+Several processes may drive one mesh, as the JAX package's processes drive
+one global mesh: `build_mesh(global_devices())` after
+`multihost.initialize()` gives every position its owning process, each
+process holds and computes the blocks of its own positions only (`None` at
+the others), a rows group that spans processes exchanges its chunks with one
+`torch.distributed` `all_to_all_single` over a subgroup of its processes, and
+`Sharded.gather` and the banded render all-gather, so every process gets the
+global value. A rows group inside one process keeps the copy.
+
 The sharded step marks its stages with `torch.profiler.record_function`
 ranges ("sharded/modulate", "sharded/rows_dft", "sharded/exchange",
-"sharded/unpack"), so a profiler trace splits the frame's device time by
-stage.
+"sharded/unpack"; "sharded/exchange_collective" for the part of an exchange
+that crosses processes), so a profiler trace splits the frame's device time
+by stage.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..models.cascade import CascadeParams, SimConfig, require_device
@@ -55,10 +67,22 @@ _ROW_FIELDS = frozenset({"h0", "h0nc", "omega", "foam", "displacement", "normal"
 
 
 class Mesh:
-    """A (patch, rows) array of `torch.device`s; a device may repeat."""
+    """A (patch, rows) array of `torch.device`s; a device may repeat.
+
+    `processes`, when given, is the owning process of each position (an
+    array of the same shape): the mesh of a multi-process run, of which each
+    process holds its own positions. Without it every position belongs to
+    the calling process (one controller), whether or not a process group is
+    initialised. Under a process group, a mesh with owners holds positions
+    of every process of the group, and every process builds it, in the same
+    order as its other meshes: the subgroups of the rows groups that span
+    processes are made here, collectively.
+    """
 
     def __init__(self, devices: Sequence[Sequence[torch.device]],
-                 axis_names: tuple[str, str] = (PATCH_AXIS, ROWS_AXIS)):
+                 axis_names: tuple[str, str] = (PATCH_AXIS, ROWS_AXIS),
+                 processes: Sequence[Sequence[int]] | None = None):
+        from .multihost import process_index
         rows = [[torch.device(d) for d in row] for row in devices]
         if not rows or any(len(row) != len(rows[0]) for row in rows) or not rows[0]:
             raise ValueError("a mesh needs a non-empty rectangular array of devices")
@@ -67,6 +91,34 @@ class Mesh:
             for j, dev in enumerate(row):
                 self.devices[i, j] = dev
         self.axis_names = tuple(axis_names)
+        self.process = process_index()
+        self.processes = None
+        if processes is not None:
+            self.processes = np.asarray(processes, dtype=np.int64)
+            if self.processes.shape != self.devices.shape:
+                raise ValueError(f"processes {self.processes.shape} do not match the devices "
+                                 f"{self.devices.shape}")
+        self.collective = self.processes is not None and dist.is_initialized()
+        self._groups = self._connect() if self.collective else None
+
+    def _connect(self) -> dict:
+        """Check the mesh against the process group; make the subgroup of
+        every rows group that spans processes (every process, same order)."""
+        world = dist.get_world_size()
+        if set(self.processes.flat) != set(range(world)):
+            raise ValueError(f"a mesh over processes {sorted(set(self.processes.flat))} must "
+                             f"hold positions of every process of the group (0..{world - 1})")
+        backend = dist.get_backend()
+        for i, j, dev in self.local_positions():
+            if backend == "nccl" and dev.type != "cuda":
+                raise ValueError(f"position ({i}, {j}) is on {dev}; the nccl backend needs "
+                                 "CUDA devices")
+        groups = {}
+        for row in self.processes:
+            ranks = tuple(sorted(set(int(p) for p in row)))
+            if len(ranks) > 1 and ranks not in groups:
+                groups[ranks] = dist.new_group(list(ranks))
+        return groups
 
     @property
     def shape(self) -> dict[str, int]:
@@ -77,8 +129,42 @@ class Mesh:
         for (i, j), dev in np.ndenumerate(self.devices):
             yield i, j, dev
 
+    def owner(self, i: int, j: int) -> int:
+        """The process that holds position (i, j)."""
+        return self.process if self.processes is None else int(self.processes[i, j])
+
+    def local_positions(self):
+        """`positions()` of the calling process, patch-major."""
+        for i, j, dev in self.positions():
+            if self.owner(i, j) == self.process:
+                yield i, j, dev
+
+    def rows_group(self, i: int) -> RowsGroup | None:
+        """Rows group i (patch position i) when its positions span
+        processes; None when one process holds it (the copy exchange)."""
+        owners = tuple(self.owner(i, j) for j in range(self.devices.shape[1]))
+        if len(set(owners)) == 1:
+            return None
+        if self._groups is None:
+            raise RuntimeError(f"rows group {i} spans processes {sorted(set(owners))}: its "
+                               "exchange needs the process group (multihost.initialize) "
+                               "initialised before the mesh is built")
+        return RowsGroup(owners, self._groups[tuple(sorted(set(owners)))], self.process)
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})})"
+        procs = "" if self.processes is None else f", processes={self.processes.tolist()}"
+        return (f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices.flat})}"
+                f"{procs})")
+
+
+@dataclasses.dataclass(frozen=True)
+class RowsGroup:
+    """A rows group whose positions span processes: the owning process of
+    each of its positions, the `torch.distributed` subgroup of those
+    processes, and the calling process."""
+    owners: tuple[int, ...]
+    group: Any
+    process: int
 
 
 def cuda_devices() -> list[torch.device]:
@@ -87,41 +173,107 @@ def cuda_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def build_mesh(devices: Sequence[torch.device | str] | None = None,
+def build_mesh(devices: Sequence[torch.device | str | tuple[int, torch.device]] | None = None,
                rows: int | None = None) -> Mesh:
     """A (patch, rows) mesh over the given devices.
 
     `rows` is the FFT-sharding degree (positions per 2D transform); the rest
     go to patch data-parallelism. Defaults to rows=2 when the device count
     is even, else 1. `devices=None` takes every CUDA device and raises
-    without one; the same device may be listed several times.
+    without one; the same device may be listed several times. Entries may
+    be (process, device) pairs, such as `multihost.global_devices()` gives:
+    the mesh then has owners (a multi-process mesh), and a rows group may
+    span processes. Under a process group `devices=None` takes
+    `global_devices()`.
     """
-    devices = list(devices if devices is not None else cuda_devices())
+    if devices is None:
+        from .multihost import global_devices
+        devices = global_devices() if dist.is_initialized() else cuda_devices()
+    devices = list(devices)
+    owned = [isinstance(d, tuple) for d in devices]
+    if any(owned) and not all(owned):
+        raise ValueError("devices must be all (process, device) pairs or all devices")
+    procs = [int(d[0]) for d in devices] if all(owned) and devices else None
+    devices = [d[1] for d in devices] if procs is not None else devices
     n = len(devices)
     if rows is None:
         rows = 2 if n % 2 == 0 else 1
     if n % rows:
         raise ValueError(f"{n} devices not divisible by rows={rows}")
-    return Mesh([devices[i:i + rows] for i in range(0, n, rows)])
+    cut = lambda xs: [xs[i:i + rows] for i in range(0, n, rows)]
+    return Mesh(cut(devices), processes=None if procs is None else cut(procs))
+
+
+def _empty(mesh: Mesh) -> list[list[Any]]:
+    return [[None] * mesh.devices.shape[1] for _ in range(mesh.devices.shape[0])]
+
+
+def _byte_view(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+def _all_gather_blocks(mesh: Mesh, blocks: list[list[Any]]) -> list[list[Any]]:
+    """Every position's block, on every process: one `all_gather` of each
+    process's blocks as bytes (each field at a 16-byte offset), on the
+    device of its first position. A move: the blocks arrive bit-equal."""
+    local = [(i, j) for i, j, _ in mesh.local_positions()]
+    first = blocks[local[0][0]][local[0][1]]
+    names = [f.name for f in dataclasses.fields(first)]
+    like = [getattr(first, name) for name in names]
+    sizes = [t.numel() * t.element_size() for t in like]
+    spans = [-(-size // 16) * 16 for size in sizes]
+    per = sum(spans)
+    owned = [[(i, j) for i, j, _ in mesh.positions() if mesh.owner(i, j) == p]
+             for p in range(dist.get_world_size())]
+    send = torch.zeros(max(map(len, owned)) * per, dtype=torch.uint8, device=like[0].device)
+    for k, (i, j) in enumerate(local):
+        at = k * per
+        for name, size, span in zip(names, sizes, spans):
+            send[at:at + size] = _byte_view(getattr(blocks[i][j], name))
+            at += span
+    recv = [torch.empty_like(send) for _ in owned]
+    dist.all_gather(recv, send)
+    out = _empty(mesh)
+    for buf, positions in zip(recv, owned):
+        for k, (i, j) in enumerate(positions):
+            at, fields = k * per, {}
+            for name, t, size, span in zip(names, like, sizes, spans):
+                fields[name] = buf[at:at + size].view(t.dtype).view(t.shape)
+                at += span
+            out[i][j] = type(first)(**fields)
+    return out
 
 
 @dataclasses.dataclass
 class Sharded:
     """An `OceanState` or `OceanMaps` laid out over a mesh: `blocks[i][j]`
     is the block of mesh position (patch i, rows j), on that position's
-    device. Its tensors are (P_l, C, ..., N/D, N): P_l = P / mesh patches
-    patches, and texel rows j N/D .. (j + 1) N/D - 1; `time` (P_l, C) is
-    the same at every position of a rows group."""
+    device, or None where another process holds the position. Its tensors
+    are (P_l, C, ..., N/D, N): P_l = P / mesh patches patches, and texel
+    rows j N/D .. (j + 1) N/D - 1; `time` (P_l, C) is the same at every
+    position of a rows group."""
     mesh: Mesh
     blocks: list[list[Any]]
 
     def gather(self, device: torch.device | str = "cpu"):
-        """The global value, its tensors (P, C, ..., N, N) on `device`."""
-        first = self.blocks[0][0]
+        """The global value, its tensors (P, C, ..., N, N) on `device`. On a
+        mesh with owners under a process group this is collective: every
+        process calls it and gets the global value (the blocks all-gathered,
+        bit-equal)."""
+        blocks = self.blocks
+        if self.mesh.collective:
+            blocks = _all_gather_blocks(self.mesh, blocks)
+        for i, row in enumerate(blocks):
+            for j, block in enumerate(row):
+                if block is None:
+                    raise RuntimeError(f"position ({i}, {j}) is held by process "
+                                       f"{self.mesh.owner(i, j)}: gathering it needs the "
+                                       "process group")
+        first = blocks[0][0]
         fields = {}
         for f in dataclasses.fields(first):
             per_patch = []
-            for row in self.blocks:
+            for row in blocks:
                 parts = [getattr(b, f.name).to(device) for b in row]
                 per_patch.append(torch.cat(parts, dim=-2) if f.name in _ROW_FIELDS else parts[0])
             fields[f.name] = torch.cat(per_patch, dim=0)
@@ -130,15 +282,15 @@ class Sharded:
 
 def shard_state(mesh: Mesh, state: OceanState) -> Sharded:
     """Place a global state (h0/h0nc (P, C, 2, N, N), omega/foam (P, C, N, N),
-    time (P, C)) onto the mesh."""
+    time (P, C)) onto the mesh: the calling process's positions."""
     p_dev, r_dev = mesh.devices.shape
     tensors = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     patches = next(iter(tensors.values())).shape[0]
     if patches % p_dev:
         raise ValueError(f"{patches} patches not divisible by the mesh's {p_dev} patch positions")
     pl = patches // p_dev
-    blocks = [[None] * r_dev for _ in range(p_dev)]
-    for i, j, dev in mesh.positions():
+    blocks = _empty(mesh)
+    for i, j, dev in mesh.local_positions():
         block = {}
         for name, x in tensors.items():
             x = x[i * pl:(i + 1) * pl]
@@ -159,7 +311,8 @@ def _row_pass(planes: torch.Tensor, fold_sign: bool) -> torch.Tensor:
     return rows_fft.idft_rows_planes(flat, fold_sign=fold_sign).reshape(planes.shape)
 
 
-def exchange_rows(ys: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+def exchange_rows(ys: Sequence[torch.Tensor | None], group: RowsGroup | None = None
+                  ) -> list[torch.Tensor | None]:
     """The transpose of a rows group: `all_to_all(split_axis=-1,
     concat_axis=-2, tiled=True)` followed by a swap of the last two axes.
 
@@ -167,11 +320,19 @@ def exchange_rows(ys: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     with N = D R. Position j gets the (..., R, N) block of rows j R ..
     (j + 1) R - 1 of the transposed field: column chunk j of every position,
     each chunk transposed into columns k R .. (k + 1) R - 1.
+
+    With `group` (a rows group spanning processes, `Mesh.rows_group`), ys
+    holds the calling process's blocks and None at the others' positions,
+    and so does the result; the chunks cross processes in one
+    `all_to_all_single`. Either way the exchange only moves bytes.
     """
     d = len(ys)
-    r, n = ys[0].shape[-2:]
+    r, n = next(y for y in ys if y is not None).shape[-2:]
     if r * d != n:
         raise ValueError(f"{d} blocks of {r} rows do not tile a {n}-wide field")
+    if group is not None:
+        with record_function("sharded/exchange_collective"):
+            return _exchange_across(ys, group, r)
     outs = []
     for j, y_j in enumerate(ys):
         out = torch.empty_like(y_j)
@@ -181,22 +342,56 @@ def exchange_rows(ys: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return outs
 
 
-def ifft2_planes_sharded(shards: Sequence[torch.Tensor], fold_sign: bool = True
-                         ) -> list[torch.Tensor]:
+def _exchange_across(ys: Sequence[torch.Tensor | None], group: RowsGroup, r: int
+                     ) -> list[torch.Tensor | None]:
+    """`exchange_rows` over processes. Process q's part of the one buffer
+    sent to process p holds, for each of p's positions j and each of q's
+    positions k (both ascending), column chunk j of block k; the receiver
+    transposes chunk (j, k) into columns k R .. (k + 1) R - 1 of its block j.
+    Every process of the subgroup sends and receives the same count."""
+    ranks = sorted(set(group.owners))
+    held = {p: [k for k, o in enumerate(group.owners) if o == p] for p in ranks}
+    mine = held[group.process]
+    lead = ys[mine[0]].shape[:-1]
+    chunk = math.prod(lead) * r
+    splits = [len(held[p]) * len(mine) * chunk for p in ranks]
+    send = torch.empty(sum(splits), dtype=ys[mine[0]].dtype, device=ys[mine[0]].device)
+    at = 0
+    for p in ranks:
+        for j in held[p]:
+            for k in mine:
+                send[at:at + chunk].view(lead + (r,)).copy_(ys[k][..., j * r:(j + 1) * r])
+                at += chunk
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, splits, splits, group=group.group)
+    outs = [None if y is None else torch.empty_like(y) for y in ys]
+    at = 0
+    for p in ranks:
+        for j in mine:
+            for k in held[p]:
+                outs[j][..., k * r:(k + 1) * r].copy_(
+                    recv[at:at + chunk].view(lead + (r,)).transpose(-2, -1))
+                at += chunk
+    return outs
+
+
+def ifft2_planes_sharded(shards: Sequence[torch.Tensor | None], fold_sign: bool = True,
+                         group: RowsGroup | None = None) -> list[torch.Tensor | None]:
     """The reference chain (rows -> transpose -> rows) on a row-sharded field
     of plane pairs.
 
     shards[k] is position k's (..., 2, N/D, N) fp32 block of a global
     (..., 2, N, N) field, on its own device. Returns the blocks of
     transpose(N^2 ifft2(x)) (times (-1)^(x+y) with fold_sign), the same
-    rows of the output as each input block held.
+    rows of the output as each input block held. With `group`, the
+    positions of other processes are None, in and out (`exchange_rows`).
     """
     with record_function("sharded/rows_dft"):
-        ys = [_row_pass(x, fold_sign) for x in shards]
+        ys = [None if x is None else _row_pass(x, fold_sign) for x in shards]
     with record_function("sharded/exchange"):
-        swapped = exchange_rows(ys)
+        swapped = exchange_rows(ys, group)
     with record_function("sharded/rows_dft"):
-        return [_row_pass(y, fold_sign) for y in swapped]
+        return [None if y is None else _row_pass(y, fold_sign) for y in swapped]
 
 
 def ifft2_packed_sharded(shards: Sequence[torch.Tensor], fold_sign: bool = True
@@ -256,8 +451,8 @@ def make_multichip_init(mesh: Mesh, config: SimConfig):
         pl = _patches(mesh, params)
         c = params.wind_speed.shape[1]
         tiles = params.tile_length.detach().cpu().numpy().astype(np.float32)   # (P, C, 2)
-        blocks = [[None] * mesh.devices.shape[1] for _ in range(mesh.devices.shape[0])]
-        for i, j, dev in mesh.positions():
+        blocks = _empty(mesh)
+        for i, j, dev in mesh.local_positions():
             lp = _local_params(params, i, pl, dev)
             y0 = j * rl
             pairs = [[generate_spectrum_one(config, lp.map(lambda x: x[a, b]), y0, rl)
@@ -301,24 +496,29 @@ def make_multichip_step(mesh: Mesh, config: SimConfig):
     over each rows group, the ifftshift sign folded in; then unpack and foam
     on its rows. With rows == 1 each position runs the unsharded `step` on
     its patches. `params` (P, C) should sit on the mesh's device(s): a
-    position copies its patches of it to its device.
+    position copies its patches of it to its device. A process computes its
+    own positions (every process holds the whole params, as JAX replicates
+    them); a rows group spanning processes exchanges collectively, so every
+    process of a multi-process mesh steps together.
     """
-    p_dev, r_dev = mesh.devices.shape
+    r_dev = mesh.devices.shape[1]
     rl = _rows_local(mesh, config)
     map_dtype = config.resolved_map_dtype()
 
     def step_whole(state: Sharded, params: CascadeParams, dt) -> tuple[Sharded, Sharded]:
         pl = _patches(mesh, params)
-        out = [_step_whole(config, state.blocks[i][0], _local_params(params, i, pl, dev), dt)
-               for i, _, dev in mesh.positions()]
-        return Sharded(mesh, [[s] for s, _ in out]), Sharded(mesh, [[m] for _, m in out])
+        states, maps = _empty(mesh), _empty(mesh)
+        for i, j, dev in mesh.local_positions():
+            states[i][j], maps[i][j] = _step_whole(config, state.blocks[i][j],
+                                                   _local_params(params, i, pl, dev), dt)
+        return Sharded(mesh, states), Sharded(mesh, maps)
 
     def step(state: Sharded, params: CascadeParams, dt) -> tuple[Sharded, Sharded]:
         dt = _f32(dt)
         pl = _patches(mesh, params)
         local = {}
         with record_function("sharded/modulate"):
-            for i, j, dev in mesh.positions():
+            for i, j, dev in mesh.local_positions():
                 st = state.blocks[i][j]
                 lp = _local_params(params, i, pl, dev)
                 t_new = st.time + dt
@@ -327,14 +527,15 @@ def make_multichip_step(mesh: Mesh, config: SimConfig):
                                                       omega=st.omega, y_offset=j * rl)
                 local[i, j] = (st, lp, t_new, layers)
         fields = {}
-        for i in range(p_dev):
-            out = ifft2_planes_sharded([local[i, j][3] for j in range(r_dev)], fold_sign=True)
-            fields.update({(i, j): f for j, f in enumerate(out)})
-        states = [[None] * r_dev for _ in range(p_dev)]
-        maps = [[None] * r_dev for _ in range(p_dev)]
+        for i in sorted({i for i, _ in local}):
+            out = ifft2_planes_sharded([local[i, j][3] if (i, j) in local else None
+                                        for j in range(r_dev)],
+                                       fold_sign=True, group=mesh.rows_group(i))
+            fields.update({(i, j): f for j, f in enumerate(out) if f is not None})
+        states, maps = _empty(mesh), _empty(mesh)
         col = lambda x: x[..., None, None]
         with record_function("sharded/unpack"):
-            for i, j, _ in mesh.positions():
+            for i, j, _ in mesh.local_positions():
                 st, lp, t_new, _ = local[i, j]
                 grow, decay = _foam_rates(lp, dt)
                 disp, normal, foam = unpack_ops.unpack_planes(
@@ -368,7 +569,10 @@ def render_geometry_sharded(mesh: Mesh, maps: OceanMaps, map_scales: torch.Tenso
     such frames may differ from the dense one at a few pixels; with those
     off (a per-pixel march, no LOD, shade_res=1) the bands equal the dense
     rows. Returns the assembled (H, W, 3) image on the first position's
-    device.
+    device. On a multi-process mesh each process renders the bands of its
+    own positions and the bands are all-gathered (collective): every process
+    returns the whole image, on the device of its first position. `maps`
+    is the same in every process.
     """
     from ..models import geometry
 
@@ -384,7 +588,7 @@ def render_geometry_sharded(mesh: Mesh, maps: OceanMaps, map_scales: torch.Tenso
         raise ValueError(f"height {height} not divisible by {n_dev} devices")
     local_h = height // n_dev
     bands = {}
-    for i, j, dev in mesh.positions():
+    for i, j, dev in mesh.local_positions():
         index = dict(zip(mesh.axis_names, (i, j)))
         if any(index[a] for a in mesh.axis_names if a not in names):
             continue
@@ -396,5 +600,9 @@ def render_geometry_sharded(mesh: Mesh, maps: OceanMaps, map_scales: torch.Tenso
         bands[idx] = geometry.render_ocean_geometry(
             local_maps, map_scales.to(dev), width=width, height=height, camera_pos=camera_pos,
             pitch_deg=pitch_deg, yaw_deg=yaw_deg, rows=(idx * local_h, local_h), **kw)
-    first = mesh.devices[0, 0]
+    first = next(mesh.local_positions())[2]
+    if mesh.collective:
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, {k: band.cpu() for k, band in bands.items()})
+        bands = {k: band for part in every for k, band in part.items()}
     return torch.cat([bands[k].to(first) for k in range(n_dev)], dim=0)

@@ -507,6 +507,47 @@ def test_sharded_fft_raises_outside_the_rows_kernel(card):
         parallel.sharding.ifft2_planes_sharded(shards)
 
 
+def test_world_one_nccl_mesh_is_bit_equal_to_one_controller(card):
+    """One NCCL worker (`parallel.launch`) holding a (4, 2) mesh of cuda:0
+    at 256^2 from `make_multihost_mesh`: K3 runs both row passes of every
+    position (16 launches a frame), `gather_maps` goes through NCCL, and the
+    maps and foam are bit-equal to one controller driving the same mesh."""
+    import functools
+    import pathlib
+    import sys
+    from godotoceanwaves_tpu_torch.utils import convert
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import graft_entry_torch
+    cfg = T.SimConfig(map_size=256)
+    params = parallel.multipatch_params(T.default_cascades(device=card), 4, seed=2)
+    mesh = parallel.build_mesh([card] * 8, rows=2)
+    state = parallel.make_multichip_init(mesh, cfg)(params)
+    leaves = {k: v.cpu().numpy() for k, v in vars(params).items()}
+    start = convert.state_to_numpy(state.gather("cpu"))
+    out = parallel.launch.run(functools.partial(
+        graft_entry_torch.sharded_frames, layout="multihost", rows=2, per_process=8,
+        config={"map_size": 256}, params=leaves, state=start, frames=2), 1, devices=[card],
+        timeout_s=300)
+    assert out["owners"] == [[0, 0]] * 4 and out["foreign"] == []
+    assert out["K3_launches"] == 2 * 8 * 2
+    step = parallel.make_multichip_step(mesh, cfg)
+    for disp, normal, foam in out["frames"]:
+        state, maps = step(state, params, 0.02)
+        got = maps.gather("cpu")
+        assert np.array_equal(disp, got.displacement.numpy())
+        assert np.array_equal(normal, got.normal.numpy())
+        assert np.array_equal(foam, state.gather("cpu").foam.numpy())
+
+
+def test_nccl_refuses_a_mesh_of_cpu_positions(card):
+    """No fallback: under NCCL a mesh with a CPU position raises in the
+    worker, and `launch.run` raises with it."""
+    import functools
+    build = functools.partial(parallel.build_mesh, [(0, torch.device("cpu"))], 1)
+    with pytest.raises(RuntimeError, match="nccl backend needs CUDA"):
+        parallel.launch.run(build, 1, devices=[card], timeout_s=300)
+
+
 def test_splat_spray_on_card_matches_cpu(card):
     """The splat's bf16-rounded operands and fp32 product on the card
     against the same function on the CPU, every particle visible."""

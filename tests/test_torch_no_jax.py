@@ -1,6 +1,8 @@
 """The PyTorch port steps and renders, unsharded and sharded, runs the scene
-frame loop (spray, scene renderer, live viewer) and serves the browser
-viewer, with JAX, flax and the JAX package unimportable."""
+frame loop (spray, scene renderer, live viewer), serves the browser viewer
+and runs its entry points and their spawned workers, with JAX, flax
+and the JAX package unimportable."""
+import pathlib
 import subprocess
 import sys
 import textwrap
@@ -117,3 +119,22 @@ def test_web_viewer_serves_without_jax():
         assert not loaded, loaded
     """)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_graft_entry_and_its_spawned_workers_without_jax():
+    """`graft_entry_torch` here and in 2 spawned gloo workers (whose dry run
+    raises if its worker loaded JAX or the JAX package)."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "orbax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import graft_entry_torch
+        fn, args = graft_entry_torch.entry(device="cpu")
+        out = graft_entry_torch.dryrun_multichip(2, device="cpu", timeout_s=120)
+        assert out["foreign"] == [] and out["processes"] == 2, out
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=str(pathlib.Path(__file__).resolve().parents[1]))

@@ -229,6 +229,19 @@ def test_sharded_step_matches_port_step(rows):
         assert torch.equal(got_state.time[p], ref_state.time)
 
 
+def test_gather_of_the_first_patch_positions():
+    """A `Sharded` of the first patch positions' blocks alone gathers those
+    patches (how a caller takes patch 0 of a sharded state)."""
+    cfg = T.SimConfig(map_size=N)
+    params = tsh.multipatch_params(T.default_cascades(device="cpu"), 4, seed=2)
+    state = tsh.make_multichip_init(cpu_mesh(2), cfg)(params)
+    part = tsh.Sharded(state.mesh, state.blocks[:1]).gather()
+    whole = state.gather()
+    assert part.h0.shape == (1, 3, 2, N, N)
+    for f in dataclasses.fields(whole):
+        assert torch.equal(getattr(part, f.name), getattr(whole, f.name)[:1]), f.name
+
+
 def test_sharded_step_keeps_the_map_dtype_and_rejects_bad_shapes():
     cfg = T.SimConfig(map_size=N, map_dtype="bfloat16")
     params = tsh.multipatch_params(T.default_cascades(device="cpu"), 2, seed=1)
