@@ -132,6 +132,12 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     gloo's loopback; (c) `graft_entry_torch.dryrun_multichip(8)` (K3 against
     torch.fft on CPU positions), `examples/multichip_torch.py`, and
     `graft_entry_torch.entry()` (K1 once).
+21. The port's benchmark (`--bench` runs phases 1 and 21 only):
+    `python3 bench_torch.py` in a subprocess (config 4 in it, `--rms`,
+    `--config5` and `--render` each in a process of its own), which must
+    exit 0; its last line must hold every field of the record, the oracle
+    RMS within 1e-4, the K1 and strip tiers, positive times, and (in the
+    full run) config 4's ms/frame within 0.5-2x of phase 5's K1 pair.
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -140,7 +146,8 @@ rate and the operations it does over the fp32 rate (HBM_TBPS,
 FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
 the sharded step, a JSON line of the scene loop, a JSON line of the browser
-viewer, a JSON line of the multi-process legs, the card's name and power
+viewer, a JSON line of the multi-process legs, a JSON line of the benchmark's
+record, the card's name and power
 limit, a JSON line of the kernels, then as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
@@ -257,6 +264,14 @@ TOL_BANDS = 1e-4             # max abs, banded vs dense frame (tests/test_shardi
 MULTIHOST_GLOO_FRAMES = 4    # leg (b): ~1 GB crosses processes a frame through gloo
 MULTIHOST_CPU_SIZE = 256     # leg (b) on CPU positions where gloo refuses CUDA tensors
 MULTIHOST_TIMEOUT = 600.0    # s for a leg's workers and each collective
+# phase 21: bench_torch.py's record (its fields, bench.py's and the port's own)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_ms", "baseline", "p99_ms",
+              "min_ms", "rms_vs_oracle", "rms_tier", "config5_ms_frame", "config5_stream_fps",
+              "config5_stream_MBps", "config5_stream_bytes_frame", "config5_preview_fps",
+              "config5_fft", "render_ms_frame", "render_720p_scale2_ms",
+              "render_720p_native_ms", "card")
+BENCH_TIMEOUT = 900.0        # s for the whole bench, its legs' processes included
+BENCH_VS_PHASE5 = (0.5, 2.0)  # config 4's value over phase 5's K1 pair ms/frame
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -2630,6 +2645,39 @@ def multihost_json(res: dict, phase16_ms: float | None) -> dict:
     }}
 
 
+def phase_bench(torch, card: str, k1_ms: float | None) -> dict:
+    """`python3 bench_torch.py` in a subprocess; checks its record."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")],
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    for line in proc.stderr.strip().splitlines():
+        log(f"[21] {line}")
+    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    check(len(lines) == 4, f"bench_torch.py printed {len(lines)} records, not 4")
+    record = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in record]
+    check(not missing and len(record) == len(BENCH_KEYS),
+          f"bench record fields: missing {missing}, {len(record)} in all")
+    check(record["rms_vs_oracle"] <= TOL_ORACLE,
+          f"bench rms_vs_oracle {record['rms_vs_oracle']} > {TOL_ORACLE:g}")
+    check(record["rms_tier"] == "fused" and record["config5_fft"] == "strip",
+          f"bench tiers {record['rms_tier']!r}, {record['config5_fft']!r}")
+    times = ("value", "config5_ms_frame", "render_ms_frame", "render_720p_scale2_ms",
+             "render_720p_native_ms")
+    check(all(record[k] > 0 for k in times), f"bench times {[record[k] for k in times]}")
+    ratio = None if k1_ms is None else record["value"] / k1_ms
+    log(f"[21] bench_torch.py: rc 0 in {seconds:.1f} s; config 4 {record['value']} ms/frame, "
+        f"{'phase 5 not run' if ratio is None else f'{ratio:.3f}x phase 5 K1 pair {k1_ms:.4f}'}; "
+        f"card {card}")
+    if ratio is not None:
+        check(BENCH_VS_PHASE5[0] <= ratio <= BENCH_VS_PHASE5[1],
+              f"bench config 4 {record['value']} ms/frame is {ratio:.3f}x phase 5's K1 pair")
+    return record
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2674,8 +2722,13 @@ def main(argv: list) -> int:
         log(json.dumps(multihost_json(phase_multihost(torch, card), None)))
         log(card_line())
         return 0
+    if argv == ["--bench"]:
+        # phase 21 only: bench_torch.py and its record
+        log(json.dumps({"bench": phase_bench(torch, card, None)}))
+        log(card_line())
+        return 0
     if argv:
-        print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost]",
+        print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost | --bench]",
               file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
@@ -2710,6 +2763,7 @@ def main(argv: list) -> int:
     web_line = {"web": phase_web(torch, T, dev, card)}
     torch.cuda.empty_cache()
     multihost_line = multihost_json(phase_multihost(torch, card), stime["step"]["ms_per_frame"])
+    bench_line = {"bench": phase_bench(torch, card, k1_ms)}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -2728,6 +2782,7 @@ def main(argv: list) -> int:
     log(json.dumps(scene_line))
     log(json.dumps(web_line))
     log(json.dumps(multihost_line))
+    log(json.dumps(bench_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

@@ -640,3 +640,83 @@ def test_web_viewer_serves_png_frames_from_the_card(card, monkeypatch):
         assert body[:8] == b"\x89PNG\r\n\x1a\n" and body[12:16] == b"IHDR"
         assert struct.unpack(">II", body[16:24]) == (128, 72)
     assert fused_step.LAUNCHES > k1 and tap.LAUNCHES > k5
+
+
+# --- extreme parameters through K1, K4 and K2; the session's subset paths --
+
+# tests/test_robustness.py's cases (this file imports no JAX), seed (3, -9)
+EDGE_CASES = {
+    "dead_calm": dict(wind_speed=1e-4, foam_amount=0.0),
+    "hurricane": dict(wind_speed=80.0, fetch_length=2000.0, foam_amount=10.0),
+    "zero_detail": dict(detail=0.0),
+    "full_spread": dict(spread=1.0, swell=0.0),
+    "max_swell": dict(swell=2.0, spread=0.0),
+    "tiny_tile": dict(tile_length=(1.0, 1.0)),
+    "huge_tile": dict(tile_length=(4096.0, 4096.0)),
+    "anisotropic_tile": dict(tile_length=(16.0, 512.0)),
+    "short_fetch": dict(fetch_length=1e-4),
+    "zero_whitecap": dict(whitecap=0.0, foam_amount=10.0),
+    "negative_wind_dir": dict(wind_direction=-360.0),
+}
+# (map size, config, the kernel module the card's step launches)
+EDGE_PATHS = {
+    "K1 bf16": (64, dict(map_dtype="bfloat16"), fused_step),
+    "K1 f16": (64, dict(map_dtype="float16"), fused_step),
+    "K4 2048 bf16": (2048, dict(map_dtype="bfloat16"), strip_step),
+    "K2 fused=never": (64, dict(fused="never"), planes_fft),
+}
+
+
+@pytest.mark.parametrize("path", list(EDGE_PATHS))
+@pytest.mark.parametrize("case", sorted(EDGE_CASES) + ["dt 1000 then -0.1"])
+def test_extreme_params_through_the_kernels(card, case, path):
+    """Each edge case of tests/test_robustness.py (3 steps of dt 0.1; the dt
+    case: seed (1, 2), dt 1000 then -0.1) through the kernel on the card,
+    against the same steps on the CPU (the plain versions) from the same
+    state: finite maps, foam in [0, 1], within the kernel-vs-plain bounds."""
+    n, cfg_kw, module = EDGE_PATHS[path]
+    seed, dts = ((1, 2), (1000.0, -0.1)) if case.startswith("dt") else ((3, -9), (0.1,) * 3)
+    p = T.models.stack_cascades([T.CascadeParams.create(spectrum_seed=seed, device="cpu",
+                                                        **EDGE_CASES.get(case, {}))])
+    cfg = T.SimConfig(map_size=n, **cfg_kw)
+    cpu_state = T.init_state(cfg, p)
+    state = cpu_state.replace(**{f: getattr(cpu_state, f).to(card)
+                                 for f in ("h0", "h0nc", "omega", "foam", "time")})
+    params = p.to(card)
+    before = module.LAUNCHES
+    for dt in dts:
+        state, maps = T.step(cfg, state, params, dt)
+        cpu_state, cpu_maps = T.step(cfg, cpu_state, p, dt)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES - before == 2 * len(dts)
+    d, nm = maps.displacement, maps.normal
+    assert bool(d.isfinite().all()) and bool(nm.isfinite().all()), case
+    assert 0.0 <= float(nm[:, 3].min()) and float(nm[:, 3].max()) <= 1.0, case
+    assert_close((d, nm, state.foam), (cpu_maps.displacement, cpu_maps.normal, cpu_state.foam),
+                 two_byte=cfg.map_dtype != "float32")
+
+
+@pytest.mark.parametrize("stagger", [False, True])
+def test_session_subset_paths_on_card_match_cpu(card, stagger):
+    """A capped-rate session (skipped frames fold into dt; in stagger mode
+    each frame refreshes one pending cascade through K1 on a one-cascade
+    subset), a `set_cascade` that dirties cascade 1 (regenerated alone),
+    then `set_cascades` to two cascades: the card against the CPU, update
+    by update."""
+    sessions = [T.Ocean(map_size=64, updates_per_second=30.0, stagger=stagger, device=d)
+                for d in (card, "cpu")]
+    before = fused_step.LAUNCHES
+    for i, delta in enumerate([0.02, 0.05, 0.01, 0.04, 0.03, 0.02, 0.05, 0.01, 0.04]):
+        for o in sessions:
+            if i == 3:
+                o.set_cascade(1, wind_speed=13.0, tile_length=41.0)
+            if i == 6:
+                o.set_cascades(T.default_cascades(device=o.device).map(lambda x: x[:2]))
+            o.update(delta)
+        gpu, cpu = sessions
+        assert gpu._pending == cpu._pending and gpu.num_cascades == cpu.num_cascades
+        assert_close((gpu.maps.displacement, gpu.maps.normal, gpu.state.foam),
+                     (cpu.maps.displacement, cpu.maps.normal, cpu.state.foam), two_byte=False)
+        assert torch.equal(gpu.state.time.cpu(), cpu.state.time)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES > before

@@ -1,6 +1,6 @@
 """The PyTorch port steps and renders, unsharded and sharded, runs the scene
 frame loop (spray, scene renderer, live viewer), serves the browser viewer
-and runs its entry points and their spawned workers, with JAX, flax
+and runs its entry points, their spawned workers and the benchmark, with JAX, flax
 and the JAX package unimportable."""
 import pathlib
 import subprocess
@@ -133,6 +133,26 @@ def test_graft_entry_and_its_spawned_workers_without_jax():
         out = graft_entry_torch.dryrun_multichip(2, device="cpu", timeout_s=120)
         assert out["foreign"] == [] and out["processes"] == 2, out
         loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+
+
+def test_bench_imports_and_runs_a_leg_without_jax():
+    """`bench_torch.py` imports with JAX and the JAX package unimportable,
+    and its config-4 and --rms legs run on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import bench_torch
+        r4 = bench_torch.bench_config4(device="cpu", map_size=16, k=2, frames=4, reps=2,
+                                       baseline_k=2, baseline_reps=1)
+        assert r4["min"] <= r4["p50"] <= r4["max"]
+        assert bench_torch.bench_rms(device="cpu", map_size=16)["rms"] <= bench_torch.RMS_GATE
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
                   and sys.modules[m] is not None]
         assert not loaded, loaded
     """)
