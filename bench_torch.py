@@ -29,7 +29,10 @@ with its shapes:
   scene's cascades, rendered at 640x360, at 1280x720 with render_scale=2
   and at native 1280x720 (interactive tier, environment on; one K5 launch
   a frame, no K6): 2 warm-up frames, then the best of 3 x 12 frames by
-  CUDA events, frames chained through a bounded camera nudge.
+  CUDA events, frames chained through a bounded camera nudge. Each frame
+  (the render and the sum of its pixels) is one captured CUDA graph
+  (`utils/graphs.py`), replayed once a frame, as `bench.py` times one
+  jitted program a frame; the first warm-up frame captures it.
 
 The record is printed after config 4 and again, as a superset, after each
 later leg, so the last line holds every field. Each later leg runs in a
@@ -56,6 +59,7 @@ from godotoceanwaves_tpu_torch import SimConfig, default_cascades, init_state
 from godotoceanwaves_tpu_torch.models.cascade import CascadeParams, dual_wind_swell_cascades
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, multi_step, step
 from godotoceanwaves_tpu_torch.ops import fused_step, march, strip_step, tap
+from godotoceanwaves_tpu_torch.utils import graphs
 
 K = 48         # frames a multi_step call
 FRAMES = 960   # frames a timing block
@@ -324,11 +328,16 @@ def bench_render(device="cuda", map_size: int = 1024, width: int = 640, height: 
     for name, size in legs.items():
         carry = [torch.zeros((), device=device)]
 
-        def frame():
+        def render_sum(eps, size=size):
             # each frame waits for the last; the pose moves by at most 1e-6 m
-            img = render_ocean_geometry(maps, scales, camera_pos=cam0 + torch.tanh(carry[0]) * 1e-6,
+            img = render_ocean_geometry(maps, scales, camera_pos=cam0 + torch.tanh(eps) * 1e-6,
                                         **RENDER_TIER, **size)
-            carry[0] = img.sum()
+            return img.sum()
+
+        program = graphs.graphed(render_sum)    # bench.py's jax.jit(frame)
+
+        def frame():
+            carry[0] = program(carry[0])
 
         before = (tap.LAUNCHES, march.LAUNCHES)
         for _ in range(warmup):

@@ -94,7 +94,9 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     `make_batched_step` (K = 4) over 8 frames against the sequential loop;
     the YUV420 wire at 1280x720; one frame under
     `set_sync_debug_mode("error")`; 3 `LiveViewer` frames; one
-    `demo_torch.py --frames 3 --spray` run. Then, at 640x360 and 1280x720,
+    `demo_torch.py --frames 3 --spray` run (the render, the spray advance
+    and the K-frame step each replay a captured CUDA graph on the card,
+    phase 22). Then, at 640x360 and 1280x720,
     CUDA events and the host clock for `update`, the spray advance, the
     render without and with spray, the splat alone (and its product in fp32
     and as a bf16 product with an fp32 output), the loop through
@@ -134,10 +136,25 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     `graft_entry_torch.entry()` (K1 once).
 21. The port's benchmark (`--bench` runs phases 1 and 21 only):
     `python3 bench_torch.py` in a subprocess (config 4 in it, `--rms`,
-    `--config5` and `--render` each in a process of its own), which must
-    exit 0; its last line must hold every field of the record, the oracle
-    RMS within 1e-4, the K1 and strip tiers, positive times, and (in the
-    full run) config 4's ms/frame within 0.5-2x of phase 5's K1 pair.
+    `--config5` and `--render` each in a process of its own; the render
+    legs time one captured CUDA graph a frame), which must exit 0; its last
+    line must hold every field of the record, the oracle RMS within 1e-4,
+    the K1 and strip tiers, positive times, and (in the full run) config
+    4's ms/frame within 0.5-2x of phase 5's K1 pair.
+22. The captured frame programs (`utils/graphs.py`; `--graphs` runs phases
+    1 and 22 only) against the same programs run eagerly inside
+    `graphs.disabled()`, on phase 18's scene (3 x 1024^2 bf16, 32768
+    particles): the spray step through a restore and the ANSI field
+    bit-equal; at 640x360, 1280x720 and 1280x720 at render_scale=2, frames
+    with and without spray at a pose and colours that change a frame,
+    bit-equal with one K5 launch a frame either way, the capture time, the
+    renderer's pool bytes, the render and the loop through `FramePipeline`
+    in turns (events and host clock), the device's busy share
+    (torch.profiler) and one replayed frame under
+    `set_sync_debug_mode("error")`; `make_batched_step` (K = 4, spray)
+    twice, bit-equal, K1 2 and K5 1 a tick, ms a frame; phase 13's render
+    legs as one graphed program a frame (the render and its sum) against
+    the eager frame, chained, in turns.
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -147,14 +164,15 @@ FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
 the sharded step, a JSON line of the scene loop, a JSON line of the browser
 viewer, a JSON line of the multi-process legs, a JSON line of the benchmark's
-record, the card's name and power
-limit, a JSON line of the kernels, then as its last line
+record, a JSON line of the captured frame programs, the card's name and
+power limit, a JSON line of the kernels, then as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
 fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -272,6 +290,13 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_ms", "baseline
               "render_720p_native_ms", "card")
 BENCH_TIMEOUT = 900.0        # s for the whole bench, its legs' processes included
 BENCH_VS_PHASE5 = (0.5, 2.0)  # config 4's value over phase 5's K1 pair ms/frame
+# phase 22: the captured frame programs (utils/graphs.py) against the same
+# programs run eagerly (graphs.disabled()): the scene of phase 18 at each
+# GRAPH_SIZES (width, height, render_scale), and the render legs of phase 13
+GRAPH_SIZES = ((640, 360, 1), (1280, 720, 1), (1280, 720, 2))
+GRAPH_EQUAL_FRAMES = 3       # frames a size held bit-equal to eager, with and without spray
+GRAPH_SPRAY_STEPS = 8        # spray advances each side of a restore
+GRAPH_FIELD = (88.0, 96, 88)  # the ANSI field's (extent, cols, rows): LiveViewer's defaults
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -2678,6 +2703,234 @@ def phase_bench(torch, card: str, k1_ms: float | None) -> dict:
     return record
 
 
+def pool_bytes(torch, pool) -> int | None:
+    """The bytes of the device segments a `graphs.Pool` holds (the allocator's
+    snapshot), None where the snapshot does not name pools."""
+    if pool.handle is None:
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == tuple(pool.handle))
+
+
+def graph_counts(before: dict) -> dict:
+    return {k: v - before[k] for k, v in read_counts().items()}
+
+
+def graph_equal_frames(torch, graphs, ocean, spray, r, cam) -> dict:
+    """GRAPH_EQUAL_FRAMES scene frames, each rendered eagerly and replayed,
+    with and without spray, at a pose and colours that change a frame:
+    bit-equal, the same launches."""
+    out = {"equal": True, "launches_eager": None, "launches_graphed": None}
+    for i in range(GRAPH_EQUAL_FRAMES):
+        maps = ocean.update(SCENE["dt"])
+        scales = ocean.params.map_scales()
+        attrs = spray.advance(maps, scales, SCENE["dt"])
+        pose = (ocean.water_color * (1.0 + 0.1 * i), ocean.foam_color, cam + i,
+                SCENE_PITCH - i, SCENE_YAW + 7.0 * i)
+        for spray_attrs in (None, attrs):
+            torch.cuda.synchronize()
+            before = read_counts()
+            with graphs.disabled():
+                eager = r.render(maps, scales, *pose, spray_attrs=spray_attrs)
+            torch.cuda.synchronize()
+            e_counts = graph_counts(before)
+            before = read_counts()
+            got = r.render(maps, scales, *pose, spray_attrs=spray_attrs)
+            torch.cuda.synchronize()
+            g_counts = graph_counts(before)
+            out["equal"] &= torch.equal(got, eager)
+            check(e_counts == g_counts == only(K5=1),
+                  f"launches a frame: eager {e_counts}, graphed {g_counts}; expected one K5")
+            out["launches_eager"], out["launches_graphed"] = e_counts, g_counts
+    return out
+
+
+def phase_graphs(torch, T, dev, card: str) -> dict:
+    """Phase 22: the captured frame programs against `graphs.disabled()`."""
+    from godotoceanwaves_tpu_torch.models import geometry
+    from godotoceanwaves_tpu_torch.models.viewport import (FramePipeline, SpraySession,
+                                                           make_batched_step)
+    from godotoceanwaves_tpu_torch.utils import graphs, live
+    from godotoceanwaves_tpu_torch.utils.timing import time_cuda
+    out = {}
+    ocean, spray = scene_session(torch, T, dev)
+    cam = torch.tensor(CAM0, device=dev)
+    # the spray step through a restore, graphed and eager from one snapshot
+    maps, scales = ocean.maps, ocean.params.map_scales()
+    spray.advance(maps, scales, SCENE["dt"])
+    snap = spray.checkpoint()
+    runs = {}
+    for mode in ("graphed", "eager"):
+        with (graphs.disabled() if mode == "eager" else contextlib.nullcontext()):
+            a = SpraySession(device=dev)
+            a.restore(snap)
+            for _ in range(GRAPH_SPRAY_STEPS):
+                a.advance(maps, scales, SCENE["dt"])
+            b = SpraySession(device=dev)
+            b.restore(a.checkpoint())
+            attrs = [b.advance(maps, scales, SCENE["dt"]) for _ in range(GRAPH_SPRAY_STEPS)]
+            runs[mode] = (b.checkpoint()["state"], attrs)
+    (gs, ga), (es, ea) = runs["graphed"], runs["eager"]
+    spray_equal = (all(torch.equal(gs[k], es[k]) for k in es)
+                   and all(torch.equal(g[k], e[k]) for g, e in zip(ga, ea) for k in e))
+    log(f"[22] spray step ({SCENE['particles']} particles): {GRAPH_SPRAY_STEPS} advances, a "
+        f"restore, {GRAPH_SPRAY_STEPS} more, graphed vs eager: bit-equal {spray_equal}")
+    check(spray_equal, "the graphed spray step differs from the eager one")
+    out["spray_bit_equal"] = spray_equal
+
+    # the ANSI field
+    with graphs.disabled():
+        want = live._sample_field_graphed(maps, scales, *GRAPH_FIELD)
+    got = [live._sample_field_graphed(maps, scales, *GRAPH_FIELD) for _ in range(2)]
+    field_equal = all(torch.equal(a, b) for g in got for a, b in zip(g, want))
+    log(f"[22] ANSI field {GRAPH_FIELD[1]}x{GRAPH_FIELD[2]}: graphed vs eager bit-equal "
+        f"{field_equal}")
+    check(field_equal, "the graphed ANSI field differs from the eager one")
+    out["field_bit_equal"] = field_equal
+
+    for width, height, s in GRAPH_SIZES:
+        tag = f"{width}x{height}" + (f" render_scale={s}" if s > 1 else "")
+        r = scene_renderer(width, height, **({"render_scale": s} if s > 1 else {}))
+        leg = {}
+        reserved = torch.cuda.memory_reserved(dev)
+        leg.update(graph_equal_frames(torch, graphs, ocean, spray, r, cam))
+        leg["reserved_growth_GiB"] = (torch.cuda.memory_reserved(dev) - reserved) / 2 ** 30
+        check(leg["equal"], f"{tag}: a replayed frame differs from the eager frame")
+        leg["capture_s"] = {k: p.capture_seconds for k, p in r.programs.items()}
+        leg["pool_GiB"] = (None if pool_bytes(torch, r.pool) is None
+                           else pool_bytes(torch, r.pool) / 2 ** 30)
+        pipe = FramePipeline()
+        loop = lambda: pipe.push(scene_frame(ocean, spray, r, cam)[0])
+
+        def eager_loop():
+            with graphs.disabled():
+                loop()
+        attrs = spray.advance(ocean.maps, ocean.params.map_scales(), SCENE["dt"])
+        wc, fc = ocean.water_color, ocean.foam_color
+
+        def render_call(mode):
+            def call():
+                with (graphs.disabled() if mode == "eager" else contextlib.nullcontext()):
+                    r.render(ocean.maps, scales, wc, fc, cam, SCENE_PITCH, SCENE_YAW,
+                             spray_attrs=attrs)
+            return call
+        leg["render_spray"] = in_turns(torch, {"eager": render_call("eager"),
+                                               "graphed": render_call("graphed")})
+        leg["loop"] = in_turns(torch, {"eager": eager_loop, "graphed": loop})
+        pipe.flush()
+        for mode, frame in (("graphed", lambda: scene_frame(ocean, spray, r, cam)),
+                            ("eager", lambda: eager_loop())):
+            prof = profile_frames(torch, frame, f"{mode}_{width}x{height}_scale{s} ({tag})",
+                                  leg["loop"][mode]["host_ms"], phase=22, stem="graph_profile")
+            leg[f"busy_ms_{mode}"] = prof["busy_ms"]
+            leg[f"busy_share_{mode}"] = prof["busy_ms"] / leg["loop"][mode]["host_ms"]
+            leg[f"kernels_a_frame_{mode}"] = prof["launches"]
+        # one replayed frame under sync-debug "error"
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scene_frame(ocean, spray, r, cam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        out[tag] = leg
+        pool = ("not measured" if leg["pool_GiB"] is None
+                else f"{leg['pool_GiB']:.3f} GiB")
+        fmt = lambda d: (f"{d['ms']:.3f} ms (events) / {d['host_ms']:.3f} (host clock) "
+                         f"[passes {', '.join(f'{v:.2f}' for v in d['ms_all'])} / "
+                         f"{', '.join(f'{v:.2f}' for v in d['host_ms_all'])}]")
+        log(f"[22] {tag}: {GRAPH_EQUAL_FRAMES} frames with and without spray, replayed vs "
+            f"eager bit-equal {leg['equal']}, launches a frame {leg['launches_graphed']} (eager "
+            f"{leg['launches_eager']}); captures {leg['capture_s']} s; pool "
+            f"{pool}, "
+            f"reserved grew {leg['reserved_growth_GiB']:.3f} GiB; card {card}")
+        log(f"[22] {tag}: render with spray eager {fmt(leg['render_spray']['eager'])}, graphed "
+            f"{fmt(leg['render_spray']['graphed'])}; loop through FramePipeline eager "
+            f"{fmt(leg['loop']['eager'])}, graphed {fmt(leg['loop']['graphed'])}; device busy "
+            f"{leg['busy_ms_graphed']:.3f} ms = {leg['busy_share_graphed']:.1%} of the graphed "
+            f"loop's frame ({leg['kernels_a_frame_graphed']:.0f} kernels), eager "
+            f"{leg['busy_ms_eager']:.3f} ms = {leg['busy_share_eager']:.1%}; no host sync in a "
+            f"replayed frame; card {card}")
+        del r, pipe
+        torch.cuda.empty_cache()
+
+    # the K-frame step, graphed and eager from one state
+    k = SCENE["batch"]
+    r = scene_renderer(*SCENE_SIZES[0])
+    sp_params, _ = spray.ensure_init()
+    fn = make_batched_step(r, ocean.config, sp_params, k)
+    results, counts, times = {}, {}, {}
+    for mode in ("graphed", "eager"):
+        with (graphs.disabled() if mode == "eager" else contextlib.nullcontext()):
+            state, sps, clock, seq = ocean.state, spray._state, spray.clock, []
+            torch.cuda.synchronize()
+            before = read_counts()
+            for _ in range(2):
+                state, sps, frames, last = fn(state, ocean.params, sps, clock, ocean.water_color,
+                                              ocean.foam_color, cam, SCENE_PITCH, SCENE_YAW,
+                                              70.0, SCENE["dt"])
+                clock += k * SCENE["dt"]
+                seq.append((frames, state.foam, state.time, sps.start_time, sps.cycle,
+                            last.displacement, last.normal))
+            torch.cuda.synchronize()
+            counts[mode] = graph_counts(before)
+            carry = [ocean.state, spray._state]
+
+            def tick():
+                carry[0], carry[1], _, _ = fn(carry[0], ocean.params, carry[1], clock,
+                                              ocean.water_color, ocean.foam_color, cam,
+                                              SCENE_PITCH, SCENE_YAW, 70.0, SCENE["dt"])
+            times[mode] = time_cuda(tick, iters=5, warmup=1) / k
+            results[mode] = seq
+    batched_equal = all(torch.equal(a, b) for g, e in zip(results["graphed"], results["eager"])
+                        for a, b in zip(g, e))
+    log(f"[22] make_batched_step(k={k}) at {SCENE_SIZES[0][0]}x{SCENE_SIZES[0][1]} with spray, "
+        f"2 calls: graphed vs eager frames, state, spray state and last maps bit-equal "
+        f"{batched_equal}; launches graphed {counts['graphed']}, eager {counts['eager']}; "
+        f"ms a frame (CUDA events): graphed {times['graphed']:.3f}, eager {times['eager']:.3f}; "
+        f"capture {fn.program.capture_seconds} s; card {card}")
+    check(batched_equal, "the graphed K-frame step differs from the eager one")
+    check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k),
+          f"K-frame step launches: graphed {counts['graphed']}, eager {counts['eager']}")
+    out["batched"] = dict(bit_equal=batched_equal, launches=counts["graphed"],
+                          ms_frame_graphed=times["graphed"], ms_frame_eager=times["eager"],
+                          capture_s=fn.program.capture_seconds)
+    del fn, r
+    torch.cuda.empty_cache()
+
+    # the render legs of phase 13: one graphed program a frame (the render and
+    # its pixel sum, as bench_torch.py times it) against the eager frame
+    maps, scales = ocean.maps, ocean.params.map_scales()
+    for leg, kw in RENDER_LEGS.items():
+        def render_sum(eps, kw=kw):
+            return render(geometry, maps, scales, cam=cam + torch.tanh(eps) * 1e-6, **kw).sum()
+        program = graphs.graphed(render_sum)
+        zero = torch.zeros((), device=dev)
+        with graphs.disabled():
+            want = render_sum(zero)
+        equal = all(torch.equal(program(zero), want) for _ in range(2))
+        check(equal, f"{leg}: the graphed frame's sum differs from the eager frame's")
+
+        def chained(fn):
+            carry = [zero]
+
+            def frame():
+                carry[0] = fn(carry[0])
+            return frame
+        res = in_turns(torch, {"eager": chained(render_sum), "graphed": chained(program)})
+        out[f"leg {leg}"] = dict(res, bit_equal=equal, capture_s=program.capture_seconds)
+        log(f"[22] render leg {leg} (phase 13's, chained): eager {res['eager']['ms']:.3f} ms "
+            f"(events) / {res['eager']['host_ms']:.3f} (host clock), graphed "
+            f"{res['graphed']['ms']:.3f} / {res['graphed']['host_ms']:.3f} [passes "
+            f"{[round(v, 3) for v in res['graphed']['ms_all']]}]; sum bit-equal {equal}; "
+            f"capture {program.capture_seconds} s; card {card}")
+        del program
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2727,9 +2980,14 @@ def main(argv: list) -> int:
         log(json.dumps({"bench": phase_bench(torch, card, None)}))
         log(card_line())
         return 0
+    if argv == ["--graphs"]:
+        # phase 22 only: the captured frame programs against eager
+        log(json.dumps({"graphs": phase_graphs(torch, T, dev, card)}))
+        log(card_line())
+        return 0
     if argv:
-        print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost | --bench]",
-              file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost | --bench | "
+              "--graphs]", file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -2764,6 +3022,8 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     multihost_line = multihost_json(phase_multihost(torch, card), stime["step"]["ms_per_frame"])
     bench_line = {"bench": phase_bench(torch, card, k1_ms)}
+    torch.cuda.empty_cache()
+    graphs_line = {"graphs": phase_graphs(torch, T, dev, card)}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     k2_ms, k2_plain_ms, k2_lib_ms, k2_bound = timing[("K2", PLANES_L, STRIP_SIZE)]
@@ -2783,6 +3043,7 @@ def main(argv: list) -> int:
     log(json.dumps(web_line))
     log(json.dumps(multihost_line))
     log(json.dumps(bench_line))
+    log(json.dumps(graphs_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

@@ -31,6 +31,7 @@ import torch
 
 from . import shading
 from .cascade import require_device
+from ..utils import graphs
 from ..utils.clipmap import _axis_coords
 
 # the reference ships two clipmap gradings of a 512x512 m plane
@@ -56,11 +57,16 @@ def _vec(v, device) -> torch.Tensor:
     return torch.stack([_scalar(x, device) for x in v])
 
 
-@functools.lru_cache(maxsize=128)
 def _on_device(device: torch.device, fn, *args):
     """fn(*args), a static NumPy table (or tuple of them), copied to `device`
     once: integer arrays as long index tensors, float arrays as fp32; other
-    members (Python floats) pass through. Shared: never write to it."""
+    members (Python floats) pass through (a CUDA graph that reads it holds
+    it: `graphs.keep`). Shared: never write to it."""
+    return graphs.keep(_on_device_table(device, fn, *args))
+
+
+@functools.lru_cache(maxsize=128)
+def _on_device_table(device: torch.device, fn, *args):
     def conv(x):
         if isinstance(x, np.ndarray):
             t = torch.from_numpy(np.array(x))

@@ -34,6 +34,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils import graphs
+
 REFLECTANCE = 0.02           # air->water, eta=1.33 (water.gdshader:9)
 DEFAULT_WATER_COLOR = (0.1, 0.15, 0.18)    # water.gd:15
 DEFAULT_FOAM_COLOR = (0.73, 0.67, 0.62)    # water.gd:17
@@ -42,10 +44,22 @@ FOG_LIGHT_COLOR = (0.272954, 0.419272, 0.484632)   # main.tscn:27
 
 
 @functools.lru_cache(maxsize=256)
-def _const(values: tuple, device: torch.device) -> torch.Tensor:
-    """A small fp32 constant on `device`, copied there once. Shared: never
-    write to it."""
+def _const_table(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small fp32 constant on `device`, copied there once (a CUDA graph
+    that reads it holds it: `graphs.keep`). Shared: never write to it."""
+    return graphs.keep(_const_table(values, device))
+
+
+def _rgb(color, device: torch.device) -> torch.Tensor:
+    """A colour as a (3,) fp32 tensor on `device`: a tensor moves (no copy
+    where it is), host numbers (rounded to fp32) are a `_const`."""
+    if isinstance(color, torch.Tensor):
+        return color.to(device=device, dtype=torch.float32)
+    return _const(tuple(float(v) for v in np.asarray(color, np.float32).reshape(3)), device)
 
 
 def _f32(x: float) -> float:
@@ -309,17 +323,17 @@ def _gradient_tap(planes: torch.Tensor, s: torch.Tensor, xz: torch.Tensor) -> to
     planes: (3, R, R); s: the cascade's map_scales row. The reference's
     bicubic<->bilinear blend by pixels-per-meter (water.gdshader:76-82)
     against THIS table's resolution; when the blend factor saturates at 1
-    only the bilinear tap runs (the JAX package's lax.cond; here a host
-    read of the scalar). Returns (3, ...).
+    the result is the bilinear tap alone (the JAX package's lax.cond; here
+    a choice on the device between the two, both computed, so nothing is
+    read back to the host). Returns (3, ...).
     """
     n = planes.shape[-1]
     uv = xz * s[:2]
     ppm = n * torch.minimum(s[0], s[1])
     mix_t = torch.clamp_max(ppm * 0.1, 1.0)
-    if bool(mix_t >= 1.0):
-        return sample_bilinear_mxu(planes, uv)
-    return (sample_bicubic_mxu(planes, uv) * (1 - mix_t)
-            + sample_bilinear_mxu(planes, uv) * mix_t)
+    linear = sample_bilinear_mxu(planes, uv)
+    blend = sample_bicubic_mxu(planes, uv) * (1 - mix_t) + linear * mix_t
+    return torch.where(mix_t >= 1.0, linear, blend)
 
 
 def _window_weights(rel: torch.Tensor, m: int, cubic: bool) -> torch.Tensor:
@@ -338,8 +352,8 @@ def _slab_tap(planes_pad: torch.Tensor, s: torch.Tensor, xz: torch.Tensor,
 
     planes_pad: (3, 2R, R), the table duplicated along v so any R-row
     window is contiguous. The caller guarantees max(fv) - min(fv) + 4 <=
-    slab. The x axis keeps the circular weights. Same blend and saturation
-    skip as `_gradient_tap`. Returns (3, ...).
+    slab. The x axis keeps the circular weights. Same blend and saturated
+    choice as `_gradient_tap`. Returns (3, ...).
     """
     n = planes_pad.shape[-1]
     uv = xz * s[:2]
@@ -363,9 +377,8 @@ def _slab_tap(planes_pad: torch.Tensor, s: torch.Tensor, xz: torch.Tensor,
         out = torch.einsum("pck,pk->pc", rows, wx)
         return out.T.reshape((3,) + xz.shape[:-1])
 
-    if bool(mix_t >= 1.0):
-        return tap(False)
-    return tap(True) * (1 - mix_t) + tap(False) * mix_t
+    linear = tap(False)
+    return torch.where(mix_t >= 1.0, linear, tap(True) * (1 - mix_t) + linear * mix_t)
 
 
 # --- screen-space LOD for the gradient taps ---------------------------------
@@ -516,9 +529,9 @@ def shade(
     (..., H, W, 3) screen structure.
     """
     dev = gradient.device
-    water_color = _const(tuple(water_color), dev)
-    foam_color = _const(tuple(foam_color), dev)
-    light_color = _const(tuple(light_color), dev)
+    water_color = _rgb(water_color, dev)
+    foam_color = _rgb(foam_color, dev)
+    light_color = _rgb(light_color, dev)
     rough = torch.full((), _f32(roughness), dtype=torch.float32, device=dev)
 
     # fragment() (gdshader:85-93)
@@ -776,8 +789,8 @@ def splat_spray(
     dissolve envelope; with `custom_z`, the scrolling-noise dissolve cut
     (:30-33, a per-particle procedural noise phase) sculpts the puff
     edges. Brightness uses the foam-colour boost (:27-28). The projection
-    is the renderers' camera; pose arguments may be numbers or tensors on
-    the image's device, `foam_color` host numbers.
+    is the renderers' camera; pose arguments and `foam_color` may be
+    numbers or tensors on the image's device.
 
     The sprites are separable gaussian lobes, so the composite is one
     contraction overlay = (wy * alpha)^T @ wx over (lobes x particles)
@@ -857,6 +870,5 @@ def splat_spray(
     else:
         product = a.float().T @ b.float()
     overlay = torch.clamp(product, 0.0, 1.0)[..., None]
-    boost = (_const(tuple(float(c) for c in np.asarray(foam_color, np.float32).reshape(3)), dev)
-             * _const((1.65, 1.75, 1.65), dev))
+    boost = _rgb(foam_color, dev) * _const((1.65, 1.75, 1.65), dev)
     return torch.clamp(img * (1 - overlay) + boost * overlay, 0.0, 1.0)

@@ -9,20 +9,27 @@ work, and the lazily created persistent spray state (the reference scene
 always renders its 32768-particle spray, main.tscn:133-140). This module is
 its single owner, so the surfaces cannot drift apart.
 
-On the card a frame's render is eager PyTorch around the gradient-tap
-kernel (`ops/tap.py`); nothing in it reads back to the host, so the host
-runs ahead and `FramePipeline` overlaps each frame's device-to-host copy
-with the next frame's work.
+On the card each of the JAX package's jitted programs here is a captured
+CUDA graph (`utils/graphs.py`), replayed once a call: the render with or
+without the spray composite (one K5 launch inside), the spray step, and
+the K-frame step (K1's multi-frame launch, then a spray step and a render a
+tick). The pose, the colours and the clocks reach the card as tensors
+through one non-blocking copy a call, so a replay never bakes in the first
+call's numbers. Nothing reads back to the host, so the host runs ahead and
+`FramePipeline` overlaps each frame's device-to-host copy with the next
+frame's work. `graphs.disabled()` runs the same programs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
 from . import geometry, shading, spray
 from .cascade import require_device
+from ..utils import graphs
 
 # --- render quality tiers ---------------------------------------------------
 # The JAX package's presets (its viewport.py:37-43; there timed on a TPU,
@@ -89,9 +96,12 @@ def ycbcr_to_rgb(ycbcr: np.ndarray) -> np.ndarray:
     return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
 
 
-def _color(c) -> tuple:
+def _color(c):
     """A host colour (sequence or array of 3) as fp32-rounded Python floats,
-    the form `shading` caches its device constants by."""
+    the form `shading` caches its device constants by; a tensor stays as it
+    is."""
+    if isinstance(c, torch.Tensor):
+        return c
     return tuple(float(v) for v in np.asarray(c, np.float32).reshape(3))
 
 
@@ -101,15 +111,38 @@ def _pose_scalar(v):
     return v if isinstance(v, torch.Tensor) else float(np.float32(v))
 
 
+def _frame_args(host: graphs.HostValues, device, wc, fc, pos, pitch, yaw, fov,
+                *clock) -> tuple:
+    """``(wc, fc, pos, pitch, yaw, fov, *clock)`` for a frame program. On
+    the card every host number among them reaches the device in one staged
+    copy (`graphs.HostValues`), so a replay reads this call's values;
+    eagerly (the CPU, or inside `graphs.disabled()`) colours and scalars
+    are rounded to fp32 and the camera position passes as it is."""
+    if device.type == "cuda" and graphs.enabled():
+        return tuple(host.put([wc, fc, pos, pitch, yaw, fov, *clock], device))
+    return (_color(wc), _color(fc), pos, *(_pose_scalar(v) for v in (pitch, yaw, fov, *clock)))
+
+
+def _weak(obj, name: str):
+    """`obj.name` called through a weak reference: a graph cache held by
+    `obj` does not keep `obj` alive."""
+    ref = weakref.ref(obj)
+    return lambda *args: getattr(ref(), name)(*args)
+
+
 class SceneRenderer:
     """Render closures for one viewport configuration.
 
     ``flat=False`` renders the vertex-displaced clipmap mesh
     (`geometry.render_ocean_geometry`: silhouettes and parallax, the
     reference's defining visual); ``flat=True`` the cheap y=0 raycast
-    (`shading.render_ocean`). The camera pose (numbers or 0-d tensors on
-    the maps' device) and the session's global colours (water.gd:14-18,
-    host values) are call arguments.
+    (`shading.render_ocean`). The camera pose (numbers or tensors on the
+    maps' device) and the session's global colours (water.gd:14-18, host
+    values or (3,) tensors) are call arguments.
+
+    On the card `render` replays one captured CUDA graph a call (one per
+    map shape and dtype, with and without spray), and the graphs of one
+    renderer share one memory pool.
 
     ``transfer`` picks the wire format: ``"rgb"`` = (H, W, 3) uint8,
     ``"yuv420"`` = flat uint8 planar Y/Cb/Cr at 1.5 B/px (unpack with
@@ -137,6 +170,10 @@ class SceneRenderer:
         self.transfer = transfer
         # the displaced-geometry knobs this renderer was built with
         self.render_kwargs = dict(render_kwargs)
+        self.pool = graphs.Pool()
+        self.programs = {"render": graphs.graphed(_weak(self, "_render"), self.pool),
+                         "render_spray": graphs.graphed(_weak(self, "_render_spray"), self.pool)}
+        self._host = graphs.HostValues()
 
     def _scene(self, maps, scales, wc, fc, pos, pitch, yaw, fov) -> torch.Tensor:
         pose = dict(width=self.width, height=self.height, camera_pos=pos,
@@ -170,12 +207,15 @@ class SceneRenderer:
         """One frame on the maps' device, as uint8 in the configured wire
         format (``"rgb"``: gamma-encoded (H, W, 3); ``"yuv420"``: flat
         planar). ``fov`` is part of the pose (the reference panel's FOV
-        20-170 slider, main.gd:113-114). Reads nothing back to the host."""
-        args = (maps, scales, _color(water_color), _color(foam_color), pos,
-                _pose_scalar(pitch), _pose_scalar(yaw), _pose_scalar(fov))
+        20-170 slider, main.gd:113-114). Reads nothing back to the host.
+        On the card the frame is a copy of the graph's output: the next
+        call does not overwrite it (the JAX package returns a new array a
+        call too)."""
+        args = _frame_args(self._host, maps.displacement.device, water_color, foam_color,
+                           pos, pitch, yaw, fov)
         if spray_attrs is None:
-            return self._render(*args)
-        return self._render_spray(*args, spray_attrs)
+            return self.programs["render"](maps, scales, *args)
+        return self.programs["render_spray"](maps, scales, *args, spray_attrs)
 
 
 class FramePipeline:
@@ -237,6 +277,13 @@ class FramePipeline:
         self._pending = None
 
 
+# The spray step as one captured graph on the card, shared by every session
+# (keyed by its params, the particle count and the maps' shape and dtype):
+# a throwaway session that warms a configuration captures the graph the live
+# session then replays.
+_spray_step = graphs.graphed(spray.spray_step)
+
+
 class SpraySession:
     """Persistent spray particle state, shared across renderer rebuilds (a
     mesh-quality or resolution change must not reset the particles'
@@ -250,6 +297,7 @@ class SpraySession:
         self._emitter_extent = emitter_extent
         self._params = None
         self._state = None
+        self._host = graphs.HostValues()
         self.clock = 0.0
 
     @property
@@ -269,11 +317,14 @@ class SpraySession:
 
     def advance(self, maps, scales, dt: float) -> dict:
         """Step the particle state machine by dt -> billboard attrs dict
-        (feed to SceneRenderer.render(spray_attrs=...))."""
+        (feed to SceneRenderer.render(spray_attrs=...)); on the card one
+        replay of the shared spray-step graph."""
         params, state = self.ensure_init()
         self.clock += dt
-        self._state, attrs = spray.spray_step(params, state, maps, scales,
-                                              np.float32(self.clock))
+        now = np.float32(self.clock)
+        if self.device.type == "cuda" and graphs.enabled():
+            (now,) = self._host.put([now], self.device)
+        self._state, attrs = _spray_step(params, state, maps, scales, now)
         return attrs
 
     def checkpoint(self) -> dict | None:
@@ -317,24 +368,24 @@ def make_batched_step(renderer: SceneRenderer, config, spray_params, num_frames:
     a render per tick. Semantics match K sequential
     ``Ocean.update(dt)`` calls at ``updates_per_second == 0`` followed by a
     spray advance and a render per tick, up to the fp32 clock: here it
-    accumulates on the device in fp32.
+    accumulates on the device in fp32. On the card the whole step is one
+    captured graph (keyed by the shapes and ``dt``; the clock, the pose and
+    the colours go in as tensors), in the renderer's memory pool.
 
     Returns ``fn(state, params, spray_state, clock, wc, fc, pos, pitch, yaw,
     fov, dt) -> (state, spray_state, frames, last_maps)`` where ``frames``
     stacks ``num_frames`` wire-format frames on axis 0 and ``last_maps`` is
-    the final tick's OceanMaps. Pass ``spray_params=None`` to drop the spray
-    (then ``spray_state`` is None and returns None).
+    the final tick's OceanMaps; none of them is overwritten by the next
+    call. Pass ``spray_params=None`` to drop the spray (then ``spray_state``
+    is None and returns None).
     """
     from .ocean import OceanMaps, step_frames
 
-    def fn(state, params, spray_state, clock, wc, fc, pos, pitch, yaw, fov, dt):
-        dt = float(np.float32(dt))
+    def frames(state, params, spray_state, clock, wc, fc, pos, pitch, yaw, fov, dt):
         state, stacked = step_frames(config, state, params, dt, num_frames)
         scales = params.map_scales()
-        wc, fc = _color(wc), _color(fc)
-        pitch, yaw, fov = _pose_scalar(pitch), _pose_scalar(yaw), _pose_scalar(fov)
         clk = spray._now(clock, state.time.device)
-        frames = []
+        out = []
         for k in range(num_frames):
             maps_k = OceanMaps(displacement=stacked.displacement[:, k],
                                normal=stacked.normal[:, k])
@@ -342,12 +393,20 @@ def make_batched_step(renderer: SceneRenderer, config, spray_params, num_frames:
             if spray_params is not None:
                 spray_state, attrs = spray.spray_step(spray_params, spray_state, maps_k,
                                                       scales, clk)
-                frames.append(renderer._render_spray(maps_k, scales, wc, fc, pos, pitch,
-                                                     yaw, fov, attrs))
+                out.append(renderer._render_spray(maps_k, scales, wc, fc, pos, pitch,
+                                                  yaw, fov, attrs))
             else:
-                frames.append(renderer._render(maps_k, scales, wc, fc, pos, pitch, yaw, fov))
+                out.append(renderer._render(maps_k, scales, wc, fc, pos, pitch, yaw, fov))
         last = OceanMaps(displacement=stacked.displacement[:, -1],
                          normal=stacked.normal[:, -1])
-        return state, spray_state, torch.stack(frames), last
+        return state, spray_state, torch.stack(out), last
 
+    program = graphs.graphed(frames, renderer.pool)
+    host = graphs.HostValues()
+
+    def fn(state, params, spray_state, clock, wc, fc, pos, pitch, yaw, fov, dt):
+        *args, clock = _frame_args(host, state.time.device, wc, fc, pos, pitch, yaw, fov, clock)
+        return program(state, params, spray_state, clock, *args, float(np.float32(dt)))
+
+    fn.program = program
     return fn

@@ -33,7 +33,8 @@ NUM_SCALARS = 8
 
 MIN_N, MAX_N = 16, 1024
 
-# Kernel launches (row and column pass each count one) since the last reset.
+# Kernel launches (row and column pass each count one) since the last reset
+# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -115,6 +116,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
             f"port of godotoceanwaves_tpu/ops/pallas_strip.py), other sizes take the "
             f"staged path (SimConfig.step_tier)")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
@@ -132,7 +134,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
                                      k, rows.lines, rows.pitch, rows.join_pitch, stream)
             if rc:
                 raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
-            LAUNCHES += 1
+            LAUNCHES += graphs.counted(__name__)
             foam_in = foam if k == 0 else foam_out   # in place from frame 1 on
             d_k, n_k = (disp[:, k], normal[:, k]) if multi else (disp, normal)
             rc = lib.fused_step_cols(
@@ -142,7 +144,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
                 cols.join_pitch, stream)
             if rc:
                 raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
-            LAUNCHES += 1
+            LAUNCHES += graphs.counted(__name__)
     return disp, normal, foam_out
 
 

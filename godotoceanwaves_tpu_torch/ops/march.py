@@ -31,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Kernel launches since the last reset.
+# Kernel launches since the last reset (a launch captured in a CUDA graph
+# counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 
 
@@ -92,6 +93,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
         raise NotImplementedError(f"the march kernel takes < 2^31 pixels and texels, got {p} "
                                   f"and {g * g}")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = table.device
     # the table by its strides; the rest are views where contiguous, as the
@@ -112,7 +114,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES += graphs.counted(__name__)
     return found, lo, hi
 
 

@@ -23,7 +23,8 @@ from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
-# Kernel launches (row and column pass each count one) since the last reset.
+# Kernel launches (row and column pass each count one) since the last reset
+# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 
 
@@ -39,6 +40,7 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         raise NotImplementedError(
             f"the planes CUDA IFFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = x.device
     with torch.cuda.device(dev):
@@ -51,12 +53,12 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
                           rows.pitch, fft_plan.TILE, stream)
         if rc:
             raise RuntimeError(f"planes_fft row pass (rows_fft) launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES += graphs.counted(__name__)
         rc = lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
                                  int(fold_sign), cols.seqs, cols.pitch, fft_plan.TILE, stream)
         if rc:
             raise RuntimeError(f"planes_fft_cols launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES += graphs.counted(__name__)
     return out
 
 

@@ -22,7 +22,8 @@ from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
-# Kernel launches since the last reset.
+# Kernel launches since the last reset (a launch captured in a CUDA graph
+# counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 
 
@@ -38,6 +39,7 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         raise NotImplementedError(
             f"the rows CUDA DFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = x.device
     with torch.cuda.device(dev):
@@ -49,7 +51,7 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
                           plan.seqs, plan.pitch, 0, stream)
         if rc:
             raise RuntimeError(f"rows_fft launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES += graphs.counted(__name__)
     return out
 
 

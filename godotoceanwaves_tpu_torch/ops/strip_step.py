@@ -29,7 +29,8 @@ from . import fft_plan, fused_step
 
 MIN_N, MAX_N = 2048, 8192
 
-# Kernel launches (row and column pass each count one) since the last reset.
+# Kernel launches (row and column pass each count one) since the last reset
+# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 
 
@@ -47,6 +48,7 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
         raise NotImplementedError(
             f"the strip CUDA step covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
@@ -64,7 +66,7 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
                                  rows.join_pitch, stream)
         if rc:
             raise RuntimeError(f"strip_step_rows launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES += graphs.counted(__name__)
         rc = lib.strip_step_cols(
             scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
             twn.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n,
@@ -72,7 +74,7 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
             cols.pitch, cols.join_pitch, stream)
         if rc:
             raise RuntimeError(f"strip_step_cols launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES += graphs.counted(__name__)
     return disp, normal, foam_out
 
 

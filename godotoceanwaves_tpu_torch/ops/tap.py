@@ -30,7 +30,8 @@ import ctypes
 
 import torch
 
-# Kernel launches since the last reset.
+# Kernel launches since the last reset (a launch captured in a CUDA graph
+# counts at each replay: utils/graphs.py).
 LAUNCHES = 0
 MAX_LEVELS = 16         # csrc/tap.cu kMaxLevels: 8192^2 down to 8^2 needs 11
 MAX_BANDS = 65535       # the grid's y extent
@@ -89,6 +90,7 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
                                   f"<= {MAX_BANDS} bands and < 2^31 pixels, got "
                                   f"{len(pyramid)}, {b} and {b * p}")
     from . import _build
+    from ..utils import graphs
     lib = _build.load()
     dev = xz_bands.device
     levels = [lev.contiguous() for lev in pyramid]          # no copy where contiguous
@@ -103,7 +105,7 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
                          torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES += graphs.counted(__name__)
     return out
 
 

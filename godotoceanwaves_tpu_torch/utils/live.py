@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models import shading
+from . import graphs
 from .observability import FrameStats
 
 # editable fields in panel order (main.gd:92-108) with their step sizes
@@ -58,6 +59,11 @@ def _sample_field(maps, scales, extent: float, cols: int, rows: int):
     disp = shading.cascade_displacement(maps.displacement, scales, xz)
     grad = shading.cascade_gradient(maps.normal, scales, xz)
     return disp[..., 1], grad[..., 2]  # height, foam
+
+
+# one captured graph a (extent, cols, rows) and maps shape on the card (the
+# JAX package's _sample_field_jit, static_argnums=(2, 3, 4))
+_sample_field_graphed = graphs.graphed(_sample_field)
 
 
 def ansi_field(height: np.ndarray, foam: np.ndarray,
@@ -264,7 +270,7 @@ class LiveViewer:
                 fov=cam.fov_deg, spray_attrs=attrs)
             body = ansi_rgb(img.cpu().numpy())
         else:
-            height, foam = _sample_field(
+            height, foam = _sample_field_graphed(
                 self._maps, scales, self.extent, self.cols, self.rows)
             body = ansi_field(height.cpu().numpy(), foam.cpu().numpy(),
                               water_color=self.ocean.water_color,

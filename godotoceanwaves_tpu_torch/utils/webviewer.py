@@ -639,8 +639,9 @@ class WebViewer:
         spray_params = (self._spray.ensure_init()[0]
                         if self.spray_enabled else None)
         key = (id(self._viewport), self.ocean.config, k, id(spray_params))
-        if self._batched is not None and self._batched[0] == key:
-            return self._batched[1], self._batched[2]
+        cached = self._batched     # one read: a renderer swap may drop it
+        if cached is not None and cached[0] == key:
+            return cached[1], cached[2]
         fn = make_batched_step(self._viewport, self.ocean.config,
                                spray_params, k)
         self._batched = (key, fn, spray_params)
@@ -909,11 +910,14 @@ class WebViewer:
 
     def _warm_frame(self, viewport: SceneRenderer, map_size: int) -> None:
         """Run `map_size`'s step and `viewport`'s frame once on throwaway
-        state (no lock held: frames keep flowing), ending in a fetch. Eager
-        PyTorch compiles nothing; this builds the per-(N, device) FFT tables
-        and the geometry caches the first real frame would otherwise build
-        inside the serving loop. A throwaway spray session, so warming does
-        not advance the live particles' respawn cycles."""
+        state (no lock held: frames keep flowing), ending in a fetch. On the
+        card this captures the renderer's graph and the spray step's for the
+        new shapes (`utils/graphs.py`), and builds the per-(N, device) FFT
+        tables and the geometry caches, all of which the first real frame
+        would otherwise do inside the serving loop. A throwaway spray
+        session, so warming does not advance the live particles' respawn
+        cycles; it captures the shared spray-step graph the live session
+        replays."""
         from ..models.ocean import init_state, step
         cfg = dataclasses.replace(self.ocean.config, map_size=map_size)
         params = self.ocean.params
@@ -988,8 +992,11 @@ class WebViewer:
 
     def _swap_renderer(self, vp: SceneRenderer, tier: str, scale: int | None,
                        aa: bool | None) -> None:
-        """Make `vp` the live renderer; call with _ocean_lock held."""
+        """Make `vp` the live renderer; call with _ocean_lock held. The old
+        renderer's graphs and memory pool go with it: the K-frame step that
+        holds it is dropped too."""
         self._viewport = vp         # atomic swap; next sim tick uses it
+        self._batched = None
         self.render_tier = tier
         if scale is not None:
             self.render_scale = scale

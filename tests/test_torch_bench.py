@@ -107,6 +107,33 @@ def test_render_leg_on_cpu():
     assert all(r[k] > 0 for k in r)
 
 
+def test_render_leg_times_one_graphed_program_a_frame(monkeypatch):
+    """Each render leg's frame is one `graphs.graphed` program (the render
+    and the sum of its pixels, bench.py's jitted `frame(eps)`), called once
+    a frame with the carry, and returning a 0-d tensor."""
+    from godotoceanwaves_tpu_torch.utils import graphs
+    programs = []
+    real = graphs.graphed
+
+    def spy(fn, pool=None):
+        g = real(fn, pool)
+        calls = []
+        programs.append(calls)
+
+        def call(*args):
+            calls.append(args)
+            out = g(*args)
+            assert isinstance(out, torch.Tensor) and out.ndim == 0
+            return out
+        return call
+
+    monkeypatch.setattr(graphs, "graphed", spy)
+    bench_torch.bench_render(device="cpu", map_size=32, width=32, height=18, warmup=1,
+                             blocks=2, frames=2)
+    assert [len(c) for c in programs] == [1 + 2 * 2] * 3
+    assert all(len(args) == 1 and args[0].ndim == 0 for c in programs for args in c)
+
+
 def test_record_holds_exactly_the_listed_keys_and_grows_by_superset(capsys):
     legs = cpu_legs()
     rc = bench_torch.report(config4_cpu(), "test card, 700.00 W", lambda flag: legs[flag])

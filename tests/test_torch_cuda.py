@@ -15,7 +15,14 @@ the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
 torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
 <= 2e-3 max abs (both round the composite's operands to bf16). The browser
 viewer serves frames from the card over localhost as standard-library PNGs.
+The captured frame programs (utils/graphs.py) replay bit-equal to the same
+programs run eagerly inside `graphs.disabled()`.
 """
+import contextlib
+import pathlib
+import subprocess
+import sys
+import textwrap
 import time
 
 import numpy as np
@@ -25,10 +32,12 @@ import torch
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
 from godotoceanwaves_tpu_torch.models import geometry, shading
-from godotoceanwaves_tpu_torch.models.viewport import FramePipeline, SceneRenderer, SpraySession
+from godotoceanwaves_tpu_torch.models.viewport import (FramePipeline, SceneRenderer, SpraySession,
+                                                       make_batched_step)
 from godotoceanwaves_tpu_torch import parallel
 from godotoceanwaves_tpu_torch.ops import (fft, fused_step, march, planes_fft, rows_fft,
                                            strip_step, tap)
+from godotoceanwaves_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -720,3 +729,157 @@ def test_session_subset_paths_on_card_match_cpu(card, stagger):
         assert torch.equal(gpu.state.time.cpu(), cpu.state.time)
     torch.cuda.synchronize()
     assert fused_step.LAUNCHES > before
+
+
+# --- the captured frame programs (utils/graphs.py) against graphs.disabled() --
+
+def graph_scene(dev, n: int = 128):
+    ocean = T.Ocean(map_size=n, map_dtype="bfloat16", updates_per_second=0, device=dev)
+    maps = ocean.update(1 / 30)
+    return ocean, maps, ocean.params.map_scales()
+
+
+GRAPH_TIER = dict(mesh_quality="low", march_steps=32, bisect_steps=6, shade_res=2,
+                  bracket_res=128, invert_res=256)
+
+
+@pytest.mark.parametrize("case", ["render", "render_spray", "march_pallas"])
+def test_graphed_render_is_bit_equal_to_eager(card, case):
+    """A 160x96 frame replayed from its graph equals the eager frame
+    (`graphs.disabled()`) bit for bit, at the first pose and at a second
+    pose with other colours; the launches count per replay as eagerly; two
+    frames the caller holds stay distinct."""
+    ocean, maps, scales = graph_scene(card)
+    kw = dict(GRAPH_TIER, march_impl="pallas") if case == "march_pallas" else GRAPH_TIER
+    r = SceneRenderer(160, 96, **kw)
+    attrs = None
+    if case == "render_spray":
+        spray = SpraySession(num_particles=2048, device=card)
+        for _ in range(20):
+            attrs = spray.advance(maps, scales, 0.25)
+    poses = [(ocean.water_color, ocean.foam_color, (0.0, 12.0, 0.0), -12.0, 0.0, 70.0),
+             ((0.3, 0.1, 0.05), (0.9, 0.9, 0.2), (3.0, 9.0, -4.0), -20.0, 35.0, 55.0)]
+    frames = []
+    for wc, fc, pos, pitch, yaw, fov in poses + poses:
+        with graphs.disabled():
+            counts = (tap.LAUNCHES, march.LAUNCHES)
+            eager = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
+            torch.cuda.synchronize()
+            eager_counts = (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1])
+        counts = (tap.LAUNCHES, march.LAUNCHES)
+        img = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
+        torch.cuda.synchronize()
+        assert (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1]) == eager_counts
+        assert eager_counts == (1, 1 if case == "march_pallas" else 0)
+        assert torch.equal(img, eager)
+        frames.append(img)
+    assert r.programs[case.replace("march_pallas", "render")].num_graphs == 1
+    assert not torch.equal(frames[0], frames[1])
+    assert torch.equal(frames[0], frames[2]) and frames[0].data_ptr() != frames[2].data_ptr()
+
+
+def test_graphed_spray_session_is_bit_equal_through_a_restore(card):
+    """8 advances, a checkpoint restored into a fresh session, 8 more: the
+    graphed sessions' states and attrs equal the eager sessions' bit for
+    bit."""
+    ocean, maps, scales = graph_scene(card)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        ctx = graphs.disabled() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            a = SpraySession(num_particles=4096, device=card)
+            for _ in range(8):
+                a.advance(maps, scales, 0.3)
+            b = SpraySession(num_particles=16, device=card)
+            b.restore(a.checkpoint())
+            attrs = [b.advance(maps, scales, 0.3) for _ in range(8)]
+            runs[mode] = (b.checkpoint()["state"], attrs)
+    (gs, ga), (es, ea) = runs["graphed"], runs["eager"]
+    assert all(torch.equal(gs[k], es[k]) for k in es)
+    assert all(torch.equal(g[k], e[k]) for g, e in zip(ga, ea) for k in e)
+
+
+def test_graphed_batched_step_is_bit_equal_to_eager(card):
+    """make_batched_step with K = 4 at 256^2 bf16, twice (the second call a
+    replay): frames, state, spray state and the last maps equal the eager
+    step's bit for bit; K1 2 a tick and K5 1 a tick, as eagerly."""
+    ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
+    r = SceneRenderer(128, 72, **GRAPH_TIER)
+    sp_params, sp_state = SpraySession(num_particles=2048, device=card).ensure_init()
+    fn = make_batched_step(r, ocean.config, sp_params, 4)
+    outs = {}
+    for mode in ("graphed", "eager"):
+        ctx = graphs.disabled() if mode == "eager" else contextlib.nullcontext()
+        state, sps, clock, seq = ocean.state, sp_state, 0.0, []
+        with ctx:
+            for _ in range(2):
+                before = (fused_step.LAUNCHES, tap.LAUNCHES)
+                state, sps, frames, last = fn(state, ocean.params, sps, clock, ocean.water_color,
+                                              ocean.foam_color, (0.0, 12.0, 0.0), -12.0, 0.0,
+                                              70.0, 1 / 30)
+                torch.cuda.synchronize()
+                assert (fused_step.LAUNCHES - before[0], tap.LAUNCHES - before[1]) == (8, 4)
+                clock += 4 / 30
+                seq.append((frames, state, sps, last))
+        outs[mode] = seq
+    assert fn.program.num_graphs == 1
+    for (gf, gst, gsp, gl), (ef, est, esp, el) in zip(outs["graphed"], outs["eager"]):
+        assert torch.equal(gf, ef)
+        assert torch.equal(gst.foam, est.foam) and torch.equal(gst.time, est.time)
+        assert all(torch.equal(getattr(gsp, f), getattr(esp, f)) for f in
+                   ("start_time", "cycle", "active", "base_scale"))
+        assert torch.equal(gl.displacement, el.displacement) and torch.equal(gl.normal, el.normal)
+    assert outs["graphed"][0][1].h0 is ocean.state.h0      # passed through, not copied
+
+
+def test_graphed_sample_field_is_bit_equal_to_eager(card):
+    from godotoceanwaves_tpu_torch.utils import live
+    _, maps, scales = graph_scene(card)
+    with graphs.disabled():
+        want = live._sample_field_graphed(maps, scales, 88.0, 96, 88)
+    for _ in range(2):
+        got = live._sample_field_graphed(maps, scales, 88.0, 96, 88)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_replayed_scene_frame_makes_no_host_sync(card):
+    """An update, a spray advance and a render, each replayed from its
+    graph, under torch.cuda.set_sync_debug_mode("error")."""
+    ocean, maps, scales = graph_scene(card, 256)
+    spray = SpraySession(num_particles=1024, device=card)
+    r = SceneRenderer(128, 72, **GRAPH_TIER)
+    for _ in range(2):                      # capture, then one replay
+        maps = ocean.update(1 / 30)
+        r.render(maps, scales, ocean.water_color, ocean.foam_color, (0.0, 12.0, 0.0), -12.0,
+                 0.0, spray_attrs=spray.advance(maps, scales, 1 / 30))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        maps = ocean.update(1 / 30)
+        img = r.render(maps, scales, ocean.water_color, ocean.foam_color, (1.0, 12.0, 0.0),
+                       -12.0, 5.0, spray_attrs=spray.advance(maps, scales, 1 / 30))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert img.dtype == torch.uint8 and tuple(img.shape) == (72, 128, 3)
+
+
+def test_a_capture_that_reads_the_host_raises(card):
+    """A program that reads a value back to the host cannot be captured:
+    the call raises (in a process of its own) instead of going on eagerly."""
+    code = textwrap.dedent("""
+        import torch
+        from godotoceanwaves_tpu_torch.utils import graphs
+        g = graphs.graphed(lambda x: x * float(x.sum()))
+        x = torch.ones(4, device="cuda")
+        try:
+            g(x)
+        except RuntimeError as e:
+            print("raised:", str(e).splitlines()[0])
+        else:
+            raise SystemExit("the capture did not raise")
+        assert g.num_graphs == 0
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert proc.returncode == 0 and "raised:" in proc.stdout, proc.stderr[-3000:]

@@ -131,3 +131,20 @@ def test_sample_field_matches_jax():
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5, atol=1e-5)
     assert jnp.isfinite(jh).all()
+
+
+def test_graphed_sample_field_matches_jax_jit():
+    """The ANSI field as the viewer calls it (`_sample_field_graphed`, one
+    captured graph on the card; `fn` as it is on CPU tensors) against the
+    JAX package's `_sample_field_jit`, at test_sample_field_matches_jax's
+    tolerance."""
+    jo = JOcean(map_size=32, updates_per_second=0)
+    maps = jo.update(1 / 30)
+    scales = jo.params.map_scales()
+    jh, jf = jlive._sample_field_jit(maps, scales, 40.0, 10, 8)
+    tmaps = convert.maps_from_numpy(np.asarray(maps.displacement), np.asarray(maps.normal),
+                                    device="cpu")
+    th, tf = tlive._sample_field_graphed(tmaps, torch.from_numpy(np.array(scales)), 40.0, 10, 8)
+    assert tuple(th.shape) == (8, 10)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-5, atol=1e-5)

@@ -1,7 +1,7 @@
 """The PyTorch port steps and renders, unsharded and sharded, runs the scene
-frame loop (spray, scene renderer, live viewer), serves the browser viewer
-and runs its entry points, their spawned workers and the benchmark, with JAX, flax
-and the JAX package unimportable."""
+frame loop (spray, scene renderer, live viewer) and its graphed programs,
+serves the browser viewer and runs its entry points, their spawned workers
+and the benchmark, with JAX, flax and the JAX package unimportable."""
 import pathlib
 import subprocess
 import sys
@@ -158,3 +158,31 @@ def test_bench_imports_and_runs_a_leg_without_jax():
     """)
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+
+
+def test_graphs_module_runs_the_frame_programs_without_jax():
+    """`utils/graphs.py` and the graphed frame programs (the K-frame step,
+    the ANSI field) import and run on CPU tensors with JAX unimportable."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "flax", "godotoceanwaves_tpu"):
+            sys.modules[name] = None          # any import of these now fails
+        import godotoceanwaves_tpu_torch as T
+        from godotoceanwaves_tpu_torch.utils import graphs, live
+        from godotoceanwaves_tpu_torch.models import SceneRenderer, SpraySession
+        from godotoceanwaves_tpu_torch.models.viewport import make_batched_step
+        ocean = T.Ocean(map_size=16, updates_per_second=0, device="cpu")
+        maps = ocean.update(0.02)
+        h, f = live._sample_field_graphed(maps, ocean.params.map_scales(), 40.0, 8, 4)
+        assert tuple(h.shape) == (4, 8)
+        sp, st = SpraySession(num_particles=32, device="cpu").ensure_init()
+        fn = make_batched_step(SceneRenderer(16, 8, flat=True), ocean.config, sp, 2)
+        with graphs.disabled():
+            out = fn(ocean.state, ocean.params, st, 0.0, ocean.water_color, ocean.foam_color,
+                     (0.0, 8.0, 0.0), -12.0, 0.0, 70.0, 0.02)
+        assert tuple(out[2].shape) == (2, 8, 16, 3) and fn.program.num_graphs == 0
+        loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+    """)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

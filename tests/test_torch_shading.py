@@ -132,3 +132,28 @@ def test_flat_render_matches_jax():
                           **kw).numpy()
     assert got.shape == (27, 48, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile", [88.0, 4.0], ids=["blend", "saturated"])
+def test_gradient_taps_choose_on_the_device_like_lax_cond(tile):
+    """The "mxu" taps' bicubic/bilinear choice (the JAX package's lax.cond)
+    is made on the device, on both sides of mix_t = 1 (at 64^2: the 88 m
+    tile blends, the 4 m tile saturates), and agrees with JAX's taps at
+    the tolerance of test_torch_live.py's field test."""
+    rng = np.random.default_rng(5)
+    n = 64
+    planes = rng.normal(0, 0.5, (3, n, n)).astype(np.float32)
+    s = np.asarray([1 / tile, 1 / tile, 1.0, 1.0], np.float32)
+    mix_t = min(1.0, n * (1 / tile) * 0.1)
+    assert (mix_t >= 1.0) == (tile == 4.0)
+    xz = rng.uniform(-60, 60, (5, 9, 2)).astype(np.float32)
+    want = js._gradient_tap(jnp.asarray(planes), jnp.asarray(s), jnp.asarray(xz))
+    got = ts._gradient_tap(torch.from_numpy(planes), torch.from_numpy(s), torch.from_numpy(xz))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    # the slab-cropped tap: a band whose v extent fits a 32-row window
+    band = xz.copy()
+    band[..., 1] = rng.uniform(10.0, 10.0 + 20.0 * tile / n, (5, 9))
+    pad = np.concatenate([planes, planes], axis=1)
+    want = js._slab_tap(jnp.asarray(pad), jnp.asarray(s), jnp.asarray(band), 32)
+    got = ts._slab_tap(torch.from_numpy(pad), torch.from_numpy(s), torch.from_numpy(band), 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

@@ -85,6 +85,32 @@ def test_scene_renderer_matches_jax(scene, case, spray):
     assert diff.mean() / 255 < 2e-3, f"mean |delta| {diff.mean() / 255:.3e}"
 
 
+@pytest.mark.parametrize("case,spray", [("flat", True), ("geometry-mxu-interactive", True),
+                                        ("geometry", False)])
+def test_scene_renderer_takes_pose_and_colours_as_tensors(scene, case, spray):
+    """The pose and colours as tensors (the form a captured render takes
+    them in on the card) give the frame the same numbers give, and so match
+    the JAX package's at test_scene_renderer_matches_jax's bound; two
+    frames the caller holds stay distinct."""
+    o, maps, scales, tmaps, tscales = scene
+    jattrs, tattrs = spray_attrs() if spray else (None, None)
+    kw = RENDERERS[case]
+    r = SceneRenderer(W, H, mesh_quality="low", **kw)
+    numbers = r.render(tmaps, tscales, o.water_color, o.foam_color, *POSE, spray_attrs=tattrs)
+    f32 = lambda v: torch.tensor(np.asarray(v, np.float32))
+    tensors = r.render(tmaps, tscales, f32(o.water_color), f32(o.foam_color),
+                       *(f32(v) for v in POSE), spray_attrs=tattrs, fov=f32(70.0))
+    assert torch.equal(tensors, numbers)
+    want = np.asarray(jviewport.SceneRenderer(W, H, mesh_quality="low", **kw).render(
+        maps, scales, o.water_color, o.foam_color, *POSE, spray_attrs=jattrs))
+    diff = np.abs(tensors.numpy().astype(np.int16) - want.astype(np.int16))
+    assert diff.mean() / 255 < 2e-3, f"mean |delta| {diff.mean() / 255:.3e}"
+    moved = r.render(tmaps, tscales, o.water_color, o.foam_color, POSE[0] + 3.0, POSE[1],
+                     POSE[2] + 20.0, spray_attrs=tattrs)
+    assert (moved != numbers).any() and torch.equal(numbers, tensors)
+    assert moved.data_ptr() != numbers.data_ptr()
+
+
 def test_yuv420_wire_matches_jax_and_round_trips():
     """The device-side YUV420 wire: 1.5 B/px, equal to the JAX package's
     bytes but for rounding ties, and close to the direct RGB quantize on a
