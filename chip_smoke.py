@@ -1198,8 +1198,9 @@ def profile_frames(torch, frame, leg: str, host_ms: float, reps: int = 3, phase:
                 dev_us = getattr(e, "cuda_time_total", 0.0)
             (extents if on_device else kernel_sums)[e.key] = dev_us / reps / 1e3
             continue
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue            # the ops' rows repeat their kernels' device time
+        if getattr(e, "device_type", None) != DeviceType.CUDA or e.is_user_annotation:
+            continue            # the ops' rows repeat their kernels' device time; a
+            # span's device row (a gpu_user_annotation) is its extent, no operation
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -1302,8 +1303,8 @@ def device_profile(torch, call, name: str) -> tuple[list, list, list]:
         us = total = 0.0
         launches = count = 0
         for e in prof.key_averages():
-            if getattr(e, "device_type", None) != DeviceType.CUDA:
-                continue
+            if getattr(e, "device_type", None) != DeviceType.CUDA or e.is_user_annotation:
+                continue            # a span's device row is its extent, no operation
             dev_us = getattr(e, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(e, "self_cuda_time_total", 0.0)

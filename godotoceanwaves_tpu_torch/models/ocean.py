@@ -27,6 +27,13 @@ regeneration, the `updates_per_second` scheduler with frame-skip delta
 compensation (water.gd:75-82), optional one-cascade-per-call staggering
 (wave_generator.gd:56-63), runtime cascade add/remove (`set_cascades`), the
 session's global water/foam colours and `checkpoint` / `restore`.
+
+Spans (`utils/observability.py`): `ocean.update` around every call,
+`ocean.regenerate` while a dirty cascade regenerates, `ocean.step` around a
+step's whole issue, and inside it `step.scalars` (the foam rates and the
+kernels' packed scalars) or `step.staged` (the staged tier's modules).
+Counters: `ocean.skipped` (the rate limiter returned None) and
+`ocean.regenerated` (cascades).
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ import torch
 
 from ..ops import fft, fused_step, initial_state, planes_fft, spectra, strip_step
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
+from ..utils.observability import count, span
 from . import shading
 from .cascade import (CascadeParams, SimConfig, default_cascades, require_device,
                       stack_cascades)
@@ -154,20 +162,24 @@ def ifft2_layers(layers: torch.Tensor, fold_sign: bool, map_size: int) -> torch.
 
 def _synthesize(config: SimConfig, h0, h0nc, omega, foam, p: CascadeParams, t, dt):
     """Maps + new foam for the cascades of `p` at modulation time `t`."""
-    grow, decay = _foam_rates(p, dt)
     map_dtype = config.resolved_map_dtype()
     tier = config.step_tier()
+    with span("step.scalars"):
+        grow, decay = _foam_rates(p, dt)
+        if tier != "staged":
+            scal = fused_step.pack_scalars(t, p.tile_length, p.whitecap, grow, decay)
     if tier != "staged":
-        scal = fused_step.pack_scalars(t, p.tile_length, p.whitecap, grow, decay)
         kernel_step = (fused_step.fused_cascade_step if tier == "fused"
                        else strip_step.strip_cascade_step)
         return kernel_step(h0, h0nc, omega, foam, scal, map_dtype=map_dtype)
-    layers = modulate_ops.modulate_planes(h0, h0nc, p.tile_length, config.depth, t,
-                                          config.g, omega=omega)
-    fields = ifft2_layers(layers, config.fold_sign, config.map_size)
-    col = lambda x: x[:, None, None]
-    return unpack_ops.unpack_planes(fields, foam, col(p.whitecap), col(grow), col(decay),
-                                    pre_shifted=config.fold_sign, map_dtype=map_dtype)
+    with span("step.staged"):
+        layers = modulate_ops.modulate_planes(h0, h0nc, p.tile_length, config.depth, t,
+                                              config.g, omega=omega)
+        fields = ifft2_layers(layers, config.fold_sign, config.map_size)
+        col = lambda x: x[:, None, None]
+        return unpack_ops.unpack_planes(fields, foam, col(p.whitecap), col(grow),
+                                        col(decay), pre_shifted=config.fold_sign,
+                                        map_dtype=map_dtype)
 
 
 def step(config: SimConfig, state: OceanState, params: CascadeParams, dt
@@ -395,20 +407,22 @@ class Ocean:
         idxs = np.nonzero(self._dirty)[0]
         if idxs.size == 0:
             return
-        if idxs.size == self.num_cascades:
-            h0, h0nc = generate_spectrum(self.config, self.params)
-            omega = generate_omega(self.config, self.params)
-        else:
-            h0, h0nc = self.state.h0.clone(), self.state.h0nc.clone()
-            omega = self.state.omega.clone()
-            for i in idxs:
-                p = self.params.map(lambda x, i=int(i): x[i])
-                h0[int(i)], h0nc[int(i)] = generate_spectrum_one(self.config, p)
-            # omega tracks tile_length edits; one host plane per dirty cascade
-            omega[torch.as_tensor(idxs, device=self.device)] = generate_omega(
-                self.config, self.params, idxs)
-        self.state = self.state.replace(h0=h0, h0nc=h0nc, omega=omega)
-        self._dirty[:] = False
+        count("ocean.regenerated", int(idxs.size))
+        with span("ocean.regenerate"):
+            if idxs.size == self.num_cascades:
+                h0, h0nc = generate_spectrum(self.config, self.params)
+                omega = generate_omega(self.config, self.params)
+            else:
+                h0, h0nc = self.state.h0.clone(), self.state.h0nc.clone()
+                omega = self.state.omega.clone()
+                for i in idxs:
+                    p = self.params.map(lambda x, i=int(i): x[i])
+                    h0[int(i)], h0nc[int(i)] = generate_spectrum_one(self.config, p)
+                # omega tracks tile_length edits; one host plane per dirty cascade
+                omega[torch.as_tensor(idxs, device=self.device)] = generate_omega(
+                    self.config, self.params, idxs)
+            self.state = self.state.replace(h0=h0, h0nc=h0nc, omega=omega)
+            self._dirty[:] = False
 
     # --- per-frame driving (water.gd:75-82 scheduler semantics) ---
 
@@ -419,23 +433,28 @@ class Ocean:
         time is folded into the next update's dt (water.gd:77-80). In stagger
         mode, frames between updates each refresh ONE pending cascade.
         """
-        ups = self.updates_per_second
-        ran = None
-        if ups == 0 or self._time >= self._next_update_time:
-            target = 1.0 / (ups + 1e-10)
-            update_delta = delta if ups == 0 else target + (self._time - self._next_update_time)
-            self._next_update_time = self._time + target
-            ran = self._update_water(update_delta)
-        elif self.stagger and self._pending:
-            self._refresh([self._pending.pop(0)], self._round_dt)
-            ran = self.maps
-        self._time += delta
-        return ran
+        with span("ocean.update"):
+            ups = self.updates_per_second
+            ran = None
+            if ups == 0 or self._time >= self._next_update_time:
+                target = 1.0 / (ups + 1e-10)
+                update_delta = (delta if ups == 0
+                                else target + (self._time - self._next_update_time))
+                self._next_update_time = self._time + target
+                ran = self._update_water(update_delta)
+            elif self.stagger and self._pending:
+                self._refresh([self._pending.pop(0)], self._round_dt)
+                ran = self.maps
+            else:
+                count("ocean.skipped")
+            self._time += delta
+            return ran
 
     def _update_water(self, dt: float) -> OceanMaps:
         self.regenerate_dirty()
         if not self.stagger:
-            self.state, self.maps = step(self.config, self.state, self.params, dt)
+            with span("ocean.step"):
+                self.state, self.maps = step(self.config, self.state, self.params, dt)
             return self.maps
         # Catch-up flush: cascades the previous round hasn't refreshed go
         # through in ONE dispatch before the new round arms
@@ -453,13 +472,14 @@ class Ocean:
     def _refresh(self, indices: Sequence[int], dt: float) -> None:
         """Refresh `indices`' maps/foam and composite into the persistent map
         buffers (new tensors; earlier returned maps stay valid)."""
-        self.state, d, nm = refresh_cascades(self.config, self.state, self.params,
-                                             dt, indices)
-        idx = torch.as_tensor(np.asarray(indices, np.int64), device=self.device)
-        disp, normal = self.maps.displacement.clone(), self.maps.normal.clone()
-        disp[idx] = d
-        normal[idx] = nm
-        self.maps = OceanMaps(displacement=disp, normal=normal)
+        with span("ocean.step"):
+            self.state, d, nm = refresh_cascades(self.config, self.state, self.params,
+                                                 dt, indices)
+            idx = torch.as_tensor(np.asarray(indices, np.int64), device=self.device)
+            disp, normal = self.maps.displacement.clone(), self.maps.normal.clone()
+            disp[idx] = d
+            normal[idx] = nm
+            self.maps = OceanMaps(displacement=disp, normal=normal)
 
     def resize(self, map_size: int, clear_jit_caches: bool = True) -> None:
         """Change the map resolution: full state rebuild, params preserved

@@ -18,6 +18,10 @@ through one non-blocking copy a call, so a replay never bakes in the first
 call's numbers. Nothing reads back to the host, so the host runs ahead and
 `FramePipeline` overlaps each frame's device-to-host copy with the next
 frame's work. `graphs.disabled()` runs the same programs eagerly.
+
+Spans: `spray.advance`, `render.frame`, `pipeline.push` and `pipeline.wait`
+(the wait for the previous frame's copy); counters: `pipeline.frames` and
+`pipeline.bytes` (delivered to host memory).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from . import geometry, shading, spray
 from .cascade import require_device
 from ..utils import graphs
+from ..utils.observability import count, span
 
 # --- render quality tiers ---------------------------------------------------
 # The JAX package's presets (its viewport.py:37-43; there timed on a TPU,
@@ -125,9 +130,15 @@ def _frame_args(host: graphs.HostValues, device, wc, fc, pos, pitch, yaw, fov,
 
 def _weak(obj, name: str):
     """`obj.name` called through a weak reference: a graph cache held by
-    `obj` does not keep `obj` alive."""
+    `obj` does not keep `obj` alive. Named `name` without its leading
+    underscore (the graph's span)."""
     ref = weakref.ref(obj)
-    return lambda *args: getattr(ref(), name)(*args)
+
+    def call(*args):
+        return getattr(ref(), name)(*args)
+
+    call.__name__ = name.lstrip("_")
+    return call
 
 
 class SceneRenderer:
@@ -211,11 +222,12 @@ class SceneRenderer:
         On the card the frame is a copy of the graph's output: the next
         call does not overwrite it (the JAX package returns a new array a
         call too)."""
-        args = _frame_args(self._host, maps.displacement.device, water_color, foam_color,
-                           pos, pitch, yaw, fov)
-        if spray_attrs is None:
-            return self.programs["render"](maps, scales, *args)
-        return self.programs["render_spray"](maps, scales, *args, spray_attrs)
+        with span("render.frame"):
+            args = _frame_args(self._host, maps.displacement.device, water_color, foam_color,
+                               pos, pitch, yaw, fov)
+            if spray_attrs is None:
+                return self.programs["render"](maps, scales, *args)
+            return self.programs["render_spray"](maps, scales, *args, spray_attrs)
 
 
 class FramePipeline:
@@ -257,14 +269,18 @@ class FramePipeline:
         if pending is None:
             return None
         buf, event = pending
+        count("pipeline.frames")
+        count("pipeline.bytes", buf.nbytes)
         if event is None:
             return buf.numpy()
-        event.synchronize()
+        with span("pipeline.wait"):
+            event.synchronize()
         return buf.numpy().copy()
 
     def push(self, img) -> np.ndarray | None:
-        prev, self._pending = self._pending, self._start(img)
-        return self._finish(prev)
+        with span("pipeline.push"):
+            prev, self._pending = self._pending, self._start(img)
+            return self._finish(prev)
 
     def flush(self) -> np.ndarray | None:
         prev, self._pending = self._pending, None
@@ -319,13 +335,14 @@ class SpraySession:
         """Step the particle state machine by dt -> billboard attrs dict
         (feed to SceneRenderer.render(spray_attrs=...)); on the card one
         replay of the shared spray-step graph."""
-        params, state = self.ensure_init()
-        self.clock += dt
-        now = np.float32(self.clock)
-        if self.device.type == "cuda" and graphs.enabled():
-            (now,) = self._host.put([now], self.device)
-        self._state, attrs = _spray_step(params, state, maps, scales, now)
-        return attrs
+        with span("spray.advance"):
+            params, state = self.ensure_init()
+            self.clock += dt
+            now = np.float32(self.clock)
+            if self.device.type == "cuda" and graphs.enabled():
+                (now,) = self._host.put([now], self.device)
+            self._state, attrs = _spray_step(params, state, maps, scales, now)
+            return attrs
 
     def checkpoint(self) -> dict | None:
         """Snapshot of the particle state machine (None before the first

@@ -116,7 +116,7 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
             f"port of godotoceanwaves_tpu/ops/pallas_strip.py), other sizes take the "
             f"staged path (SimConfig.step_tier)")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
@@ -128,23 +128,24 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
         disp = torch.empty(lead + (3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty(lead + (4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
-        for k in range(num_frames):
-            rc = lib.fused_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                     scalars.data_ptr(), tw.data_ptr(), scratch.data_ptr(), c, n,
-                                     k, rows.lines, rows.pitch, rows.join_pitch, stream)
-            if rc:
-                raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
-            foam_in = foam if k == 0 else foam_out   # in place from frame 1 on
-            d_k, n_k = (disp[:, k], normal[:, k]) if multi else (disp, normal)
-            rc = lib.fused_step_cols(
-                scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
-                d_k.data_ptr(), n_k.data_ptr(), foam_out.data_ptr(), c, n,
-                DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), cols.lines, cols.pitch,
-                cols.join_pitch, stream)
-            if rc:
-                raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
+        with observability.span("kernel.fused_step"):
+            for k in range(num_frames):
+                rc = lib.fused_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
+                                         scalars.data_ptr(), tw.data_ptr(), scratch.data_ptr(),
+                                         c, n, k, rows.lines, rows.pitch, rows.join_pitch, stream)
+                if rc:
+                    raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
+                LAUNCHES += graphs.counted(__name__)
+                foam_in = foam if k == 0 else foam_out   # in place from frame 1 on
+                d_k, n_k = (disp[:, k], normal[:, k]) if multi else (disp, normal)
+                rc = lib.fused_step_cols(
+                    scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
+                    d_k.data_ptr(), n_k.data_ptr(), foam_out.data_ptr(), c, n,
+                    DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), cols.lines,
+                    cols.pitch, cols.join_pitch, stream)
+                if rc:
+                    raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
+                LAUNCHES += graphs.counted(__name__)
     return disp, normal, foam_out
 
 

@@ -93,7 +93,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
         raise NotImplementedError(f"the march kernel takes < 2^31 pixels and texels, got {p} "
                                   f"and {g * g}")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = table.device
     # the table by its strides; the rest are views where contiguous, as the
@@ -104,7 +104,7 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
     found = torch.empty(t0.shape, dtype=torch.bool, device=dev)
     lo = torch.empty(t0.shape, dtype=torch.float32, device=dev)
     hi = torch.empty(t0.shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), observability.span("kernel.march"):
         rc = lib.march_heightfield(
             table.data_ptr(), int(table.dtype == torch.bfloat16), *table.stride(),
             compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), ok.data_ptr(),
@@ -112,9 +112,9 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
             found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g, march_steps,
             _f32(1.0 / march_steps), refine_rounds,
             torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
-    LAUNCHES += graphs.counted(__name__)
+        if rc:
+            raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
+        LAUNCHES += graphs.counted(__name__)
     return found, lo, hi
 
 

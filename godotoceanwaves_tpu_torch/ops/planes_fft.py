@@ -40,7 +40,7 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         raise NotImplementedError(
             f"the planes CUDA IFFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = x.device
     with torch.cuda.device(dev):
@@ -49,16 +49,19 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         tw = fft_plan.twiddles(n, dev)
         mid = torch.empty_like(x)      # (L, 2, N / TILE, N, TILE) records
         out = torch.empty_like(x)
-        rc = lib.rows_fft(x.data_ptr(), mid.data_ptr(), tw.data_ptr(), l, n, n, 0, rows.seqs,
-                          rows.pitch, fft_plan.TILE, stream)
-        if rc:
-            raise RuntimeError(f"planes_fft row pass (rows_fft) launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
-        rc = lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
-                                 int(fold_sign), cols.seqs, cols.pitch, fft_plan.TILE, stream)
-        if rc:
-            raise RuntimeError(f"planes_fft_cols launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        with observability.span("kernel.planes_fft"):
+            rc = lib.rows_fft(x.data_ptr(), mid.data_ptr(), tw.data_ptr(), l, n, n, 0,
+                              rows.seqs, rows.pitch, fft_plan.TILE, stream)
+            if rc:
+                raise RuntimeError(
+                    f"planes_fft row pass (rows_fft) launch failed: cudaError {rc}")
+            LAUNCHES += graphs.counted(__name__)
+            rc = lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
+                                     int(fold_sign), cols.seqs, cols.pitch, fft_plan.TILE,
+                                     stream)
+            if rc:
+                raise RuntimeError(f"planes_fft_cols launch failed: cudaError {rc}")
+            LAUNCHES += graphs.counted(__name__)
     return out
 
 

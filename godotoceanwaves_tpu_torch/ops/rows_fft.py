@@ -39,7 +39,7 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         raise NotImplementedError(
             f"the rows CUDA DFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = x.device
     with torch.cuda.device(dev):
@@ -47,11 +47,12 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         tw = fft_plan.twiddles(n, dev)
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rows_fft(x.data_ptr(), out.data_ptr(), tw.data_ptr(), l, r, n, int(fold_sign),
-                          plan.seqs, plan.pitch, 0, stream)
-        if rc:
-            raise RuntimeError(f"rows_fft launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        with observability.span("kernel.rows_fft"):
+            rc = lib.rows_fft(x.data_ptr(), out.data_ptr(), tw.data_ptr(), l, r, n,
+                              int(fold_sign), plan.seqs, plan.pitch, 0, stream)
+            if rc:
+                raise RuntimeError(f"rows_fft launch failed: cudaError {rc}")
+            LAUNCHES += graphs.counted(__name__)
     return out
 
 

@@ -48,7 +48,7 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
         raise NotImplementedError(
             f"the strip CUDA step covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
@@ -60,21 +60,22 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
         disp = torch.empty((c, 3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty((c, 4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
-        rc = lib.strip_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                 scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(),
-                                 scratch.data_ptr(), c, n, rows.lines, rows.pitch,
-                                 rows.join_pitch, stream)
-        if rc:
-            raise RuntimeError(f"strip_step_rows launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
-        rc = lib.strip_step_cols(
-            scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
-            twn.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n,
-            fused_step.DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0), cols.lines,
-            cols.pitch, cols.join_pitch, stream)
-        if rc:
-            raise RuntimeError(f"strip_step_cols launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        with observability.span("kernel.strip_step"):
+            rc = lib.strip_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
+                                     scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(),
+                                     scratch.data_ptr(), c, n, rows.lines, rows.pitch,
+                                     rows.join_pitch, stream)
+            if rc:
+                raise RuntimeError(f"strip_step_rows launch failed: cudaError {rc}")
+            LAUNCHES += graphs.counted(__name__)
+            rc = lib.strip_step_cols(
+                scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
+                twn.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n,
+                fused_step.DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0),
+                cols.lines, cols.pitch, cols.join_pitch, stream)
+            if rc:
+                raise RuntimeError(f"strip_step_cols launch failed: cudaError {rc}")
+            LAUNCHES += graphs.counted(__name__)
     return disp, normal, foam_out
 
 

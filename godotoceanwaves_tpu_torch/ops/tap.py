@@ -90,7 +90,7 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
                                   f"<= {MAX_BANDS} bands and < 2^31 pixels, got "
                                   f"{len(pyramid)}, {b} and {b * p}")
     from . import _build
-    from ..utils import graphs
+    from ..utils import graphs, observability
     lib = _build.load()
     dev = xz_bands.device
     levels = [lev.contiguous() for lev in pyramid]          # no copy where contiguous
@@ -98,14 +98,14 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
     band_lev = band_levels.contiguous()
     out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * len(levels))(*[lev.data_ptr() for lev in levels])
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), observability.span("kernel.tap"):
         rc = lib.lod_tap(ptrs, len(levels), int(levels[0].dtype == torch.bfloat16),
                          scales.data_ptr(), xz_bands.data_ptr(), *xz_bands.stride(),
                          band_lev.data_ptr(), out.data_ptr(), b, p, c, r,
                          torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
-    LAUNCHES += graphs.counted(__name__)
+        if rc:
+            raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
+        LAUNCHES += graphs.counted(__name__)
     return out
 
 

@@ -35,11 +35,12 @@ the others), a rows group that spans processes exchanges its chunks with one
 `Sharded.gather` and the banded render all-gather, so every process gets the
 global value. A rows group inside one process keeps the copy.
 
-The sharded step marks its stages with `torch.profiler.record_function`
-ranges ("sharded/modulate", "sharded/rows_dft", "sharded/exchange",
-"sharded/unpack"; "sharded/exchange_collective" for the part of an exchange
-that crosses processes), so a profiler trace splits the frame's device time
-by stage.
+The sharded step marks its stages with spans of the program's recorder
+(`utils/observability.span`: "sharded/modulate", "sharded/rows_dft",
+"sharded/exchange", "sharded/unpack"; "sharded/exchange_collective" for the
+part of an exchange that crosses processes). While a profiler records, each
+is a profiler range of that name, so the trace splits the frame's
+device time by stage; otherwise a span only checks that tracing is off.
 """
 from __future__ import annotations
 
@@ -50,13 +51,13 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..models.cascade import CascadeParams, SimConfig, require_device
 from ..models.ocean import (OceanMaps, OceanState, TIME_OFFSET_BASE, TIME_OFFSET_STEP,
                             _f32, _foam_rates, generate_spectrum_one, step as step_one)
 from ..ops import rows_fft, spectra
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
+from ..utils.observability import span
 
 ROWS_AXIS = "rows"
 PATCH_AXIS = "patch"
@@ -331,7 +332,7 @@ def exchange_rows(ys: Sequence[torch.Tensor | None], group: RowsGroup | None = N
     if r * d != n:
         raise ValueError(f"{d} blocks of {r} rows do not tile a {n}-wide field")
     if group is not None:
-        with record_function("sharded/exchange_collective"):
+        with span("sharded/exchange_collective"):
             return _exchange_across(ys, group, r)
     outs = []
     for j, y_j in enumerate(ys):
@@ -386,11 +387,11 @@ def ifft2_planes_sharded(shards: Sequence[torch.Tensor | None], fold_sign: bool 
     rows of the output as each input block held. With `group`, the
     positions of other processes are None, in and out (`exchange_rows`).
     """
-    with record_function("sharded/rows_dft"):
+    with span("sharded/rows_dft"):
         ys = [None if x is None else _row_pass(x, fold_sign) for x in shards]
-    with record_function("sharded/exchange"):
+    with span("sharded/exchange"):
         swapped = exchange_rows(ys, group)
-    with record_function("sharded/rows_dft"):
+    with span("sharded/rows_dft"):
         return [None if y is None else _row_pass(y, fold_sign) for y in swapped]
 
 
@@ -517,7 +518,7 @@ def make_multichip_step(mesh: Mesh, config: SimConfig):
         dt = _f32(dt)
         pl = _patches(mesh, params)
         local = {}
-        with record_function("sharded/modulate"):
+        with span("sharded/modulate"):
             for i, j, dev in mesh.local_positions():
                 st = state.blocks[i][j]
                 lp = _local_params(params, i, pl, dev)
@@ -534,7 +535,7 @@ def make_multichip_step(mesh: Mesh, config: SimConfig):
             fields.update({(i, j): f for j, f in enumerate(out) if f is not None})
         states, maps = _empty(mesh), _empty(mesh)
         col = lambda x: x[..., None, None]
-        with record_function("sharded/unpack"):
+        with span("sharded/unpack"):
             for i, j, _ in mesh.local_positions():
                 st, lp, t_new, _ = local[i, j]
                 grow, decay = _foam_rates(lp, dt)

@@ -29,6 +29,13 @@ copies of the arguments into the graph's input buffers.
   0 there and goes to the capture's tally; every replay adds the tally.
 - Cached device constants (`keep`) are held by the graph captured while
   they are read, so a cache eviction cannot free memory a replay reads.
+- Spans and counters (`utils/observability.py`): a call on the card is the
+  span `graph.<fn's name>`, holding `graph.copy_in`, `graph.launch` and
+  `graph.copy_out` for a replay or `graph.capture`; counters
+  `graph.copy_in_bytes` and `graph.copy_out_bytes` (each graph's sums,
+  taken once at its capture); `HostValues.put` waiting for a pinned buffer
+  is `host_values.wait`. Every launch that `LAUNCHES` counts, made or
+  replayed, is also the counter `launches.<ops module>`.
 """
 from __future__ import annotations
 
@@ -41,6 +48,8 @@ import time
 
 import numpy as np
 import torch
+
+from .observability import count, span
 
 _state = threading.local()        # .capture: the _Capture this thread is recording
 _capture_lock = threading.Lock()  # one capture at a time (torch.cuda.graph's stream is shared)
@@ -76,6 +85,7 @@ def counted(module: str) -> int:
     made: the capture's tally takes it, and each replay adds it)."""
     capture = getattr(_state, "capture", None)
     if capture is None:
+        count(f"launches.{module.rpartition('.')[2]}")
         return 1
     capture.tally[module] += 1
     return 0
@@ -130,11 +140,14 @@ class _Graph:
     outputs: list         # the output buffers
     tally: collections.Counter
     kept: list            # cached constants the replay reads
+    copy_in_bytes: int    # what a replay copies into `inputs`
+    copy_out_bytes: int   # ... and clones out of `outputs`
 
 
 def _add_launches(tally) -> None:
     for module, n in tally.items():
         sys.modules[module].LAUNCHES += n
+        count(f"launches.{module.rpartition('.')[2]}", n)
 
 
 def _results(out_spec, outputs: list, inputs: list, args: list):
@@ -170,6 +183,7 @@ class Graphed:
         self.capture_seconds: list[float] = []
         self._graphs: dict = {}
         self._lock = threading.Lock()     # one replay's copies in, launch and copies out
+        self._span = f"graph.{getattr(fn, '__name__', type(fn).__name__)}"
 
     def __call__(self, *args, **kwargs):
         leaves: list = []
@@ -181,15 +195,22 @@ class Graphed:
         except TypeError as e:
             raise TypeError("a graphed call takes tensors, containers of them and hashable "
                             f"values (the key), not {e}: pass a tensor or a tuple") from None
-        with self._lock:
-            entry = self._graphs.get(spec)
-            if entry is not None:
-                for buf, t in zip(entry.inputs, leaves):
-                    buf.copy_(t)
-                entry.graph.replay()
-                _add_launches(entry.tally)
-                return _results(entry.out_spec, entry.outputs, entry.inputs, leaves)
-        return self._capture(spec, leaves)
+        with span(self._span):
+            with self._lock:
+                entry = self._graphs.get(spec)
+                if entry is not None:
+                    with span("graph.copy_in"):
+                        for buf, t in zip(entry.inputs, leaves):
+                            buf.copy_(t)
+                    with span("graph.launch"):
+                        entry.graph.replay()
+                    _add_launches(entry.tally)
+                    count("graph.copy_in_bytes", entry.copy_in_bytes)
+                    count("graph.copy_out_bytes", entry.copy_out_bytes)
+                    with span("graph.copy_out"):
+                        return _results(entry.out_spec, entry.outputs, entry.inputs, leaves)
+            with span("graph.capture"):
+                return self._capture(spec, leaves)
 
     def _capture(self, spec, leaves: list):
         t0 = time.perf_counter()
@@ -218,9 +239,12 @@ class Graphed:
             if _flatten(first, first_leaves) != out_spec:
                 raise RuntimeError(f"{getattr(self.fn, '__name__', self.fn)} returned another "
                                    "structure under capture than in its warm-up run")
+            copied = {id(t) for t in inputs}
             with self._lock:
-                self._graphs[spec] = _Graph(graph, inputs, out_spec, outputs, capture.tally,
-                                            capture.kept)
+                self._graphs[spec] = _Graph(
+                    graph, inputs, out_spec, outputs, capture.tally, capture.kept,
+                    copy_in_bytes=sum(t.nbytes for t in inputs),
+                    copy_out_bytes=sum(t.nbytes for t in outputs if id(t) not in copied))
             result = _results(out_spec, first_leaves, inputs, leaves)
         self.capture_seconds.append(time.perf_counter() - t0)
         return result
@@ -271,7 +295,8 @@ class HostValues:
         slot = self._slot
         self._slot ^= 1
         if self._events[slot] is not None and not self._events[slot].query():
-            self._events[slot].synchronize()
+            with span("host_values.wait"):
+                self._events[slot].synchronize()
         buf = self._buffers[slot]
         buf.numpy()[:] = flat
         dev = torch.empty(n, dtype=torch.float32, device=device)

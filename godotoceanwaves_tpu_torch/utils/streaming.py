@@ -11,6 +11,10 @@ On a CUDA device each frame's maps are copied into pinned host buffers with
 an event, so the copy runs while the producing stream computes the next
 frame. The link always carries the maps' native dtype: bf16 maps move half
 the bytes of an fp32 upcast.
+
+Spans: `stream.step`, `stream.copy_issue`, `stream.wait` (the copy's event)
+and `stream.convert` (the host conversion, one a frame); counters:
+`stream.d2h_bytes` (copied from the card) and `stream.host_bytes` (yielded).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.ocean import OceanMaps
+from .observability import count, span
 
 _FIELDS = ("displacement", "normal")
 
@@ -64,9 +69,12 @@ class MapStreamer:
 
     def _host(self, x: torch.Tensor):
         if self._host_dtype is None:
-            return x.clone()
-        torch_dtype = torch.from_numpy(np.empty(0, self._host_dtype)).dtype
-        return x.to(torch_dtype, copy=True).numpy()
+            out = x.clone()
+        else:
+            torch_dtype = torch.from_numpy(np.empty(0, self._host_dtype)).dtype
+            out = x.to(torch_dtype, copy=True).numpy()
+        count("stream.host_bytes", out.nbytes)
+        return out
 
     def _start_copy(self, maps: OceanMaps, slot: int):
         """Copy the maps toward the host; returns (host tensors, event or None)."""
@@ -82,6 +90,7 @@ class MapStreamer:
                 for k, x in fields.items()}
         if self._copy_stream is None or self._copy_stream.device != dev:
             self._copy_stream = torch.cuda.Stream(dev)
+        count("stream.d2h_bytes", sum(x.nbytes for x in fields.values()))
         produced = torch.cuda.current_stream(dev).record_event()
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(produced)
@@ -97,16 +106,21 @@ class MapStreamer:
         produced = 0
         while produced < num_frames or inflight:
             while produced < num_frames and len(inflight) < self._max_inflight:
-                maps = self._step()
+                with span("stream.step"):
+                    maps = self._step()
                 if maps is None:        # rate-limiter skipped this frame
                     continue
-                inflight.append(self._start_copy(maps, produced % self._max_inflight))
+                with span("stream.copy_issue"):
+                    inflight.append(self._start_copy(maps, produced % self._max_inflight))
                 produced += 1
             host, done = inflight.popleft()
             if done is not None:
-                done.synchronize()
+                with span("stream.wait"):
+                    done.synchronize()
             # converted (a copy) before the yield, so the pinned slot is free again
-            yield {k: self._host(x) for k, x in host.items()}
+            with span("stream.convert"):
+                out = {k: self._host(x) for k, x in host.items()}
+            yield out
 
     def close(self) -> None:
         """Release the pinned buffers and the copy stream."""

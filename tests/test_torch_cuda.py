@@ -287,7 +287,9 @@ def device_ops_per_call(call, name: str, calls: int = 20) -> float:
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    # a span's device row (a gpu_user_annotation, its extent) is no operation
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and not e.is_user_annotation]
     launches = sum(e.count for e in rows if name in e.key)
     assert launches > calls // 2
     return sum(e.count for e in rows) / launches
