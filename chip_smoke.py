@@ -87,7 +87,7 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     cascades, 30 warm-up updates, `SpraySession(32768)`, and 48 frames of
     update + spray advance + a 640x360 `SceneRenderer` frame (interactive
     tier, environment on) through `FramePipeline`: launch counts (K1 2 an
-    update, K5 1 a frame), the frames (uint8, sky share, animation), the
+    update, K5 and the splat chain 1 a frame), the frames (uint8, sky share, animation), the
     visible particles; the splat with every particle visible on the card
     against the CPU; a checkpoint of `Ocean` and `SpraySession` at frame 24
     restored into fresh objects for 4 frames (spray bit-equal, maps close);
@@ -147,12 +147,14 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     particles): the spray step through a restore and the ANSI field
     bit-equal; at 640x360, 1280x720 and 1280x720 at render_scale=2, frames
     with and without spray at a pose and colours that change a frame,
-    bit-equal with one K5 launch a frame either way, the capture time, the
-    renderer's pool bytes, the render and the loop through `FramePipeline`
+    bit-equal with one K5 launch a frame either way (and one splat chain
+    with spray), the capture time, the renderer's pool bytes, the splat
+    alone, its kernel against the plain route (max abs <= 1e-4, device time
+    of each, in turns), the render and the loop through `FramePipeline`
     in turns (events and host clock), the device's busy share
     (torch.profiler) and one replayed frame under
     `set_sync_debug_mode("error")`; `make_batched_step` (K = 4, spray)
-    twice, bit-equal, K1 2 and K5 1 a tick, ms a frame; phase 13's render
+    twice, bit-equal, K1 2, K5 1 and the splat chain 1 a tick, ms a frame; phase 13's render
     legs as one graphed program a frame (the render and its sum) against
     the eager frame, chained, in turns.
 
@@ -244,6 +246,7 @@ SCENE = dict(map_size=1024, map_dtype="bfloat16", warmup=30, particles=32768, fr
 SCENE_SIZES = ((640, 360), (1280, 720))
 SCENE_PITCH, SCENE_YAW = -12.0, 0.0
 TOL_SPLAT = 2e-3             # max abs, splat on the card vs the CPU (2-byte class)
+TOL_SPLAT_KERNEL = 1e-4      # max abs, the splat kernel vs the plain route on the card
 TOL_BATCH_STEP, BATCH_EQUAL = 1, 0.999   # uint8 steps; share equal (tests/test_viewport.py:246-249)
 TOL_YUV_MEAN = 6.0           # mean uint8 |delta| of the YUV420 round trip (tests/test_viewport.py:66)
 SCENE_TIMING_ITERS = 10
@@ -297,6 +300,7 @@ GRAPH_SIZES = ((640, 360, 1), (1280, 720, 1), (1280, 720, 2))
 GRAPH_EQUAL_FRAMES = 3       # frames a size held bit-equal to eager, with and without spray
 GRAPH_SPRAY_STEPS = 8        # spray advances each side of a restore
 GRAPH_FIELD = (88.0, 96, 88)  # the ANSI field's (extent, cols, rows): LiveViewer's defaults
+SPLAT_CALLS, SPLAT_REPEATS = 20, 3      # the splat leg's profiled blocks of calls
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -348,10 +352,10 @@ def card_line() -> str:
 
 
 def launch_counts():
-    from godotoceanwaves_tpu_torch.ops import (fused_step, march, planes_fft, rows_fft,
+    from godotoceanwaves_tpu_torch.ops import (fused_step, march, planes_fft, rows_fft, splat,
                                                strip_step, tap)
     return {"K1": fused_step, "K2": planes_fft, "K3": rows_fft, "K4": strip_step, "K5": tap,
-            "K6": march}
+            "K6": march, "splat": splat}
 
 
 def only(**launched) -> dict:
@@ -1789,8 +1793,9 @@ def phase_scene(torch, T, dev) -> dict:
     log(f"[18] scene loop: {SCENE['warmup']} warm-up updates, then {n} frames of update + "
         f"spray advance ({SCENE['particles']} particles) + {width}x{height} render through "
         f"FramePipeline -> launches {counts}")
-    check(counts == only(K1=2 * n, K5=n),
-          f"expected {2 * n} K1 (2 an update) and {n} K5 (1 a frame), counted {counts}")
+    check(counts == only(K1=2 * n, K5=n, splat=n),
+          f"expected {2 * n} K1 (2 an update), {n} K5 and {n} splat chains (1 a frame), "
+          f"counted {counts}")
     check(len(frames) == n and all(f.shape == (height, width, 3) and f.dtype == np.uint8
                                    for f in frames), "the pipeline lost or reshaped a frame")
     vis = torch.stack(visible).cpu().numpy()
@@ -1885,9 +1890,9 @@ def phase_scene(torch, T, dev) -> dict:
         f"(>= {BATCH_EQUAL}); launches {bcounts}")
     check(int(diff.max()) <= TOL_BATCH_STEP and equal >= BATCH_EQUAL,
           "batched frames disagree with the sequential loop")
-    check(bcounts == only(K1=2 * total, K5=total),
+    check(bcounts == only(K1=2 * total, K5=total, splat=total),
           f"expected {2 * total} K1 (a row and a column pass a frame, from one multi-frame "
-          f"call a batch) and {total} K5")
+          f"call a batch), {total} K5 and {total} splat chains")
     out.update(batched_max_step=int(diff.max()), batched_equal_share=equal,
                batched_launches=bcounts)
     del seq_o, seq_s, bat_o, bat_s, ocean_r, spray_r
@@ -2743,10 +2748,79 @@ def graph_equal_frames(torch, graphs, ocean, spray, r, cam) -> dict:
             torch.cuda.synchronize()
             g_counts = graph_counts(before)
             out["equal"] &= torch.equal(got, eager)
-            check(e_counts == g_counts == only(K5=1),
-                  f"launches a frame: eager {e_counts}, graphed {g_counts}; expected one K5")
+            want = only(K5=1, splat=int(spray_attrs is not None))
+            check(e_counts == g_counts == want,
+                  f"launches a frame: eager {e_counts}, graphed {g_counts}; expected {want}")
             out["launches_eager"], out["launches_graphed"] = e_counts, g_counts
     return out
+
+
+def device_ms_a_call(torch, call, match: str = "") -> float:
+    """torch.profiler over SPLAT_REPEATS blocks of SPLAT_CALLS calls (device
+    rows only): the device ms a call of the operations whose names hold
+    `match` (every operation for ""), the median block."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    blocks = []
+    for _ in range(SPLAT_REPEATS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPLAT_CALLS):
+                call()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if (getattr(e, "device_type", None) != DeviceType.CUDA or e.is_user_annotation
+                    or match not in e.key):
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            us += getattr(e, "self_cuda_time_total", 0.0) if dev_us is None else dev_us
+        blocks.append(us / SPLAT_CALLS / 1e3)
+    return sorted(blocks)[len(blocks) // 2]
+
+
+def splat_work(torch, img, attrs, cam) -> dict:
+    """What one splat call's inputs need: the lobes whose amplitude is not 0
+    and whose window is on the frame, the weight products in their windows
+    (rows x columns), the bytes of its inputs and output each moved once,
+    and the least time of the two (HBM_TBPS; a product and its add at
+    FP32_TFLOPS)."""
+    from godotoceanwaves_tpu_torch.models import shading
+    from godotoceanwaves_tpu_torch.ops import splat
+    h, w = img.shape[0], img.shape[1]
+    px, py, sig, amp = shading._spray_lobes(
+        h, w, attrs["position"], attrs["scale"], attrs["dissolve"], attrs["visible"], cam,
+        SCENE_PITCH, SCENE_YAW, 70.0, 0.666, attrs["custom_z"], "puff")
+    r0, r1 = splat.lobe_window(py, sig, h)
+    c0, c1 = splat.lobe_window(px, sig, w)
+    live = (amp != 0) & px.isfinite() & py.isfinite() & (r0 <= r1) & (c0 <= c1)
+    products = int(((r1 - r0 + 1) * (c1 - c0 + 1))[live].sum())
+    p = attrs["position"].shape[0]
+    # image in and out, positions, scales, dissolve, custom_z, the turns, visible
+    moved = 2 * nbytes(img) + p * (3 + 3 + 1 + 1 + 2) * 4 + p
+    least, by = bound(moved, 2.0 * products)
+    return dict(lobes=px.numel(), live_lobes=int(live.sum()), window_products=products,
+                bytes=moved, bound_ms=least, bound_by=by)
+
+
+def splat_leg(torch, img, attrs, cam, foam) -> dict:
+    """The splat alone at a frame's size: the kernel route (`splat_spray` on
+    the card) and the plain route (`_splat_spray_plain`, the dense bf16
+    contraction) on the same card tensors, in turns (CUDA events), each
+    one's device time a call (torch.profiler: the chain's four kernels
+    alone, and every operation of a call), their max abs, and the work."""
+    from godotoceanwaves_tpu_torch.models import shading
+    args = (img, attrs["position"], attrs["scale"], attrs["dissolve"], attrs["visible"])
+    pose = dict(camera_pos=cam, pitch_deg=SCENE_PITCH, yaw_deg=SCENE_YAW, fov_deg=70.0,
+                foam_color=foam, max_alpha=0.666)
+    kernel = lambda: shading.splat_spray(*args, custom_z=attrs["custom_z"], **pose)
+    plain = lambda: shading._splat_spray_plain(*args, *pose.values(), attrs["custom_z"], "puff")
+    err = max_abs(kernel(), plain())
+    return dict(in_turns(torch, {"plain": plain, "kernel": kernel}), max_abs=err,
+                chain_device_ms=device_ms_a_call(torch, kernel, "splat_"),
+                kernel_device_ms=device_ms_a_call(torch, kernel),
+                plain_device_ms=device_ms_a_call(torch, plain),
+                **splat_work(torch, img, attrs, cam))
 
 
 def phase_graphs(torch, T, dev, card: str) -> dict:
@@ -2820,6 +2894,11 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
             return call
         leg["render_spray"] = in_turns(torch, {"eager": render_call("eager"),
                                                "graphed": render_call("graphed")})
+        img = r._scene(ocean.maps, scales, tuple(map(float, wc)), tuple(map(float, fc)), cam,
+                       SCENE_PITCH, SCENE_YAW, 70.0)
+        leg["splat"] = splat_leg(torch, img, attrs, cam, tuple(map(float, fc)))
+        check(leg["splat"]["max_abs"] <= TOL_SPLAT_KERNEL,
+              f"{tag}: the splat kernel disagrees with the plain route")
         leg["loop"] = in_turns(torch, {"eager": eager_loop, "graphed": loop})
         pipe.flush()
         for mode, frame in (("graphed", lambda: scene_frame(ocean, spray, r, cam)),
@@ -2848,6 +2927,15 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
             f"{leg['launches_eager']}); captures {leg['capture_s']} s; pool "
             f"{pool}, "
             f"reserved grew {leg['reserved_growth_GiB']:.3f} GiB; card {card}")
+        sp = leg["splat"]
+        log(f"[22] {tag}: splat alone, kernel route {fmt(sp['kernel'])}, plain route "
+            f"{fmt(sp['plain'])}; device ms a call: the chain's kernels "
+            f"{sp['chain_device_ms']:.4f}, the kernel route's every operation "
+            f"{sp['kernel_device_ms']:.4f}, the plain route's {sp['plain_device_ms']:.4f}; "
+            f"{sp['live_lobes']} of {sp['lobes']} lobes live, {sp['window_products']} window "
+            f"products, {sp['bytes'] / 1e6:.2f} MB: bound {sp['bound_ms']:.4f} ms "
+            f"({sp['bound_by']}), {sp['bound_ms'] / sp['chain_device_ms']:.1%} of it; kernel vs "
+            f"plain max |delta| {sp['max_abs']:.3e} (<= {TOL_SPLAT_KERNEL:g}); card {card}")
         log(f"[22] {tag}: render with spray eager {fmt(leg['render_spray']['eager'])}, graphed "
             f"{fmt(leg['render_spray']['graphed'])}; loop through FramePipeline eager "
             f"{fmt(leg['loop']['eager'])}, graphed {fmt(leg['loop']['graphed'])}; device busy "
@@ -2894,7 +2982,7 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
         f"ms a frame (CUDA events): graphed {times['graphed']:.3f}, eager {times['eager']:.3f}; "
         f"capture {fn.program.capture_seconds} s; card {card}")
     check(batched_equal, "the graphed K-frame step differs from the eager one")
-    check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k),
+    check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k, splat=2 * k),
           f"K-frame step launches: graphed {counts['graphed']}, eager {counts['eager']}")
     out["batched"] = dict(bit_equal=batched_equal, launches=counts["graphed"],
                           ms_frame_graphed=times["graphed"], ms_frame_eager=times["eager"],

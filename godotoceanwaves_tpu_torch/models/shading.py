@@ -765,6 +765,50 @@ def _puff_lobes(n_lobes: int = 6) -> np.ndarray:
     return tab
 
 
+@functools.lru_cache(maxsize=8)
+def _lobe_turns_table(particles: int, device: torch.device) -> torch.Tensor:
+    theta = torch.arange(particles, dtype=torch.float32, device=device) * 2.3999632
+    return torch.stack([torch.cos(theta), torch.sin(theta)], -1)
+
+
+def _lobe_turns(particles: int, device: torch.device) -> torch.Tensor:
+    """(P, 2) cos and sin of each particle slot's golden-angle turn of the
+    puff (a hash, so puffs vary across billboards), made once per count and
+    device (a CUDA graph that reads it holds it). Shared: never write to
+    it."""
+    return graphs.keep(_lobe_turns_table(particles, device))
+
+
+def _spray_view(positions, scales, width: int, camera_pos, pitch_deg, yaw_deg, fov_deg):
+    """The particles' camera-space terms both splat routes start from:
+    (x, y, z, dist, world_r, tan_half, focal), each (P,) but the 0-d
+    tan_half and focal (the renderers' camera: pitch about x, then yaw about
+    y; yaw = 0 gives f = (0, sin p, cos p))."""
+    from .geometry import _scalar, _vec
+    dev = positions.device
+    cam = _vec(camera_pos, dev)
+    pitch = torch.deg2rad(_scalar(pitch_deg, dev))
+    tan_half = torch.tan(torch.deg2rad(_scalar(fov_deg, dev)) / 2)
+    v = positions - cam
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    yaw = torch.deg2rad(_scalar(yaw_deg, dev))
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    f = torch.stack([-sy * cp, sp, cy * cp])
+    u = torch.stack([-sy * -sp, cp, cy * -sp])
+    r = torch.stack([cy, torch.zeros_like(cy), sy])
+    z = v @ f
+    x = v @ r
+    y = v @ u
+    dist = _norm(v)[..., 0]
+    focal = (width * 0.5) / tan_half
+    world_r = 0.5 * torch.abs(scales).mean(-1)
+    return x, y, z, dist, world_r, tan_half, focal
+
+
+def _spray_boost(foam_color, device: torch.device) -> torch.Tensor:
+    return _rgb(foam_color, device) * _const((1.65, 1.75, 1.65), device)
+
+
 def splat_spray(
     img: torch.Tensor,            # (H, W, 3) linear RGB to composite onto
     positions: torch.Tensor,      # (P, 3) world positions (spray_step output)
@@ -795,36 +839,68 @@ def splat_spray(
     The sprites are separable gaussian lobes, so the composite is one
     contraction overlay = (wy * alpha)^T @ wx over (lobes x particles)
     rows, with the JAX package's precision: both operands rounded to
-    bf16, the products and the sum in fp32. On a CUDA device that is a
-    bf16 matrix product with an fp32 output (`torch.mm(..., out_dtype=)`,
-    tensor cores); the CPU has no such product, so there the rounded
-    operands are widened to fp32, which is exact in every product (an
-    8-bit by 8-bit significand fits fp32). Only the order of the fp32 sum
-    differs between the two.
+    bf16, the products and the sum in fp32. The device picks the route: a
+    CPU image takes the plain route (`_splat_spray_plain`, the dense
+    contraction); a CUDA image the splat kernel (`ops/splat.py`), which
+    forms only the nonzero products, the same ones bit for bit, and sums
+    them in another order.
     """
-    from .geometry import _scalar, _vec
+    if img.device.type != "cuda":
+        return _splat_spray_plain(img, positions, scales, dissolve, visible, camera_pos,
+                                  pitch_deg, yaw_deg, fov_deg, foam_color, max_alpha, custom_z,
+                                  sprite)
+    from ..ops import splat
+    dev = img.device
+    view = _spray_view(positions, scales, img.shape[1], camera_pos, pitch_deg, yaw_deg, fov_deg)
+    puff = sprite == "puff"
+    return splat.spray_composite(
+        img, view, scales, dissolve, visible, custom_z, _spray_boost(foam_color, dev),
+        max_alpha, lobes=_puff_lobes() if puff else None,
+        turns=_lobe_turns(positions.shape[0], dev) if puff else None)
+
+
+def _splat_spray_plain(img, positions, scales, dissolve, visible, camera_pos, pitch_deg,
+                       yaw_deg, fov_deg, foam_color, max_alpha, custom_z, sprite):
+    """`splat_spray`'s plain route, the reference of the kernel's: the
+    (lobes x H) and (lobes x W) weight matrices, rounded to bf16, and their
+    product in fp32. On a CUDA device that is a bf16 matrix product with an
+    fp32 output (`torch.mm(..., out_dtype=)`, tensor cores); the CPU has no
+    such product, so there the rounded operands are widened to fp32, which
+    is exact in every product (an 8-bit by 8-bit significand fits fp32).
+    Only the order of the fp32 sum differs between the two.
+    """
     h, w = img.shape[0], img.shape[1]
     dev = img.device
-    cam = _vec(camera_pos, dev)
-    pitch = torch.deg2rad(_scalar(pitch_deg, dev))
-    tan_half = torch.tan(torch.deg2rad(_scalar(fov_deg, dev)) / 2)
-    v = positions - cam
-    cp, sp = torch.cos(pitch), torch.sin(pitch)
-    yaw = torch.deg2rad(_scalar(yaw_deg, dev))
-    cy, sy = torch.cos(yaw), torch.sin(yaw)
-    # camera basis (render_ocean / FlyCamera.basis): pitch about x, then yaw
-    # about y; yaw = 0 gives f = (0, sin p, cos p)
-    f = torch.stack([-sy * cp, sp, cy * cp])
-    u = torch.stack([-sy * -sp, cp, cy * -sp])
-    r = torch.stack([cy, torch.zeros_like(cy), sy])
-    z = v @ f
-    x = v @ r
-    y = v @ u
+    px_, py_, sigma_, amp_ = _spray_lobes(h, w, positions, scales, dissolve, visible, camera_pos,
+                                          pitch_deg, yaw_deg, fov_deg, max_alpha, custom_z,
+                                          sprite)
+    inv2s2 = (1.0 / (2.0 * sigma_ * sigma_))[:, None]
+    rows = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+    cols = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+    wy = torch.exp(-torch.square(rows[None, :] - py_[:, None]) * inv2s2)
+    wx = torch.exp(-torch.square(cols[None, :] - px_[:, None]) * inv2s2)
+    a = (wy * amp_[:, None]).to(torch.bfloat16)
+    b = wx.to(torch.bfloat16)
+    if dev.type == "cuda":
+        product = torch.mm(a.T, b, out_dtype=torch.float32)
+    else:
+        product = a.float().T @ b.float()
+    overlay = torch.clamp(product, 0.0, 1.0)[..., None]
+    boost = _spray_boost(foam_color, dev)
+    return torch.clamp(img * (1 - overlay) + boost * overlay, 0.0, 1.0)
+
+
+def _spray_lobes(h: int, w: int, positions, scales, dissolve, visible, camera_pos, pitch_deg,
+                 yaw_deg, fov_deg, max_alpha, custom_z, sprite):
+    """The plain route's lobes, each (P x L,): screen centre x and y, sigma
+    (px) and amplitude; row r = particle * L + lobe."""
+    dev = positions.device
+    x, y, z, dist, world_r, tan_half, focal = _spray_view(positions, scales, w, camera_pos,
+                                                          pitch_deg, yaw_deg, fov_deg)
     in_front = z > 0.5
     px = (x / (z * tan_half) + 1.0) * 0.5 * w
     aspect = h / w
     py = (0.5 - y / (z * tan_half * 2 * aspect)) * h
-    dist = _norm(v)[..., 0]
 
     fade = max_alpha * (1.0 - torch.exp(-dist * 0.04))
     if custom_z is None:
@@ -839,16 +915,14 @@ def splat_spray(
     alpha = torch.where(visible & in_front, alpha, 0.0)
 
     # screen-space sprite radius from the world-scale billboard size
-    focal = (w * 0.5) / tan_half
-    world_r = 0.5 * torch.abs(scales).mean(-1)
     sigma = torch.clamp(world_r * focal / torch.clamp_min(z, 0.5), 0.6, 2.2)
 
     if sprite == "puff":
         # the procedural sea_spray.png: a fixed lobe mixture, rotated per
         # particle slot (golden-angle hash) so puffs vary across billboards
         tab = _const(tuple(map(tuple, _puff_lobes().tolist())), dev)   # (L, 4)
-        theta = torch.arange(px.shape[0], dtype=torch.float32, device=dev) * 2.3999632
-        ct, st = torch.cos(theta)[:, None], torch.sin(theta)[:, None]
+        turns = _lobe_turns(px.shape[0], dev)
+        ct, st = turns[:, 0:1], turns[:, 1:2]
         off = sigma[:, None] * 1.3                          # lobe ring radius
         cx = px[:, None] + off * (ct * tab[:, 0] - st * tab[:, 1])
         cy_ = py[:, None] + off * (st * tab[:, 0] + ct * tab[:, 1])
@@ -858,17 +932,4 @@ def splat_spray(
         sigma_, amp_ = sig.reshape(-1), amp.reshape(-1)
     else:
         px_, py_, sigma_, amp_ = px, py, sigma, alpha
-    inv2s2 = (1.0 / (2.0 * sigma_ * sigma_))[:, None]
-    rows = torch.arange(h, dtype=torch.float32, device=dev) + 0.5
-    cols = torch.arange(w, dtype=torch.float32, device=dev) + 0.5
-    wy = torch.exp(-torch.square(rows[None, :] - py_[:, None]) * inv2s2)
-    wx = torch.exp(-torch.square(cols[None, :] - px_[:, None]) * inv2s2)
-    a = (wy * amp_[:, None]).to(torch.bfloat16)
-    b = wx.to(torch.bfloat16)
-    if dev.type == "cuda":
-        product = torch.mm(a.T, b, out_dtype=torch.float32)
-    else:
-        product = a.float().T @ b.float()
-    overlay = torch.clamp(product, 0.0, 1.0)[..., None]
-    boost = _rgb(foam_color, dev) * _const((1.65, 1.75, 1.65), dev)
-    return torch.clamp(img * (1 - overlay) + boost * overlay, 0.0, 1.0)
+    return px_, py_, sigma_, amp_

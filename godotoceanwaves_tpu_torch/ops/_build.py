@@ -30,10 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Per-source flags. The render kernels round interpolation weights to bf16,
 # so a contracted multiply-add that moves a weight by an ulp can flip its
 # rounding: they build without contraction.
-SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",)}
+SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",),
+                "splat.cu": ("-fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
+_FP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # fused_step_rows(h0, h0nc, omega, scal, tw, scratch, c, n, frame, rows, pitch, jpitch,
     #                 stream)
@@ -58,6 +60,11 @@ _SIGNATURES = {
     #                   inv_cell, found, lo, hi, pixels, g, steps, inv_steps, rounds, stream)
     "march_heightfield": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _I,
                           _I, _I, _F, _I, _P),
+    # splat_spray(img, x, y, z, dist, world_r, scales, dissolve, visible, custom_z, turns,
+    #             tan_half, focal, boost, table, lobes, particles, h, w, aspect, max_alpha,
+    #             recs, rects, tiles, lists, capacity, out, stream)
+    "splat_spray": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I,
+                    _F, _F, _P, _P, _P, _P, _LL, _P, _P),
 }
 
 

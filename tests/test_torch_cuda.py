@@ -13,7 +13,9 @@ abs; the march (K6) `found` equal on >= 99.9 % of pixels and lo/hi within
 1e-4 relative; a rendered frame, kernel route vs plain route, <= 1e-3 mean;
 the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
 torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
-<= 2e-3 max abs (both round the composite's operands to bf16). The browser
+<= 2e-3 max abs (both round the composite's operands to bf16), and the splat
+kernel vs the plain route on the card <= 1e-4 max abs (the same products,
+summed in another order). The browser
 viewer serves frames from the card over localhost as standard-library PNGs.
 The captured frame programs (utils/graphs.py) replay bit-equal to the same
 programs run eagerly inside `graphs.disabled()`.
@@ -36,7 +38,7 @@ from godotoceanwaves_tpu_torch.models.viewport import (FramePipeline, SceneRende
                                                        make_batched_step)
 from godotoceanwaves_tpu_torch import parallel
 from godotoceanwaves_tpu_torch.ops import (fft, fused_step, march, planes_fft, rows_fft,
-                                           strip_step, tap)
+                                           splat, strip_step, tap)
 from godotoceanwaves_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
@@ -578,6 +580,93 @@ def test_splat_spray_on_card_matches_cpu(card):
     assert float((got.cpu() - want).abs().max()) <= 2e-3
 
 
+SPLAT_POSE = dict(camera_pos=(0.0, 6.0, 0.0), pitch_deg=-9.0, yaw_deg=4.0, fov_deg=70.0)
+SPLAT_KW = dict(SPLAT_POSE, foam_color=shading.DEFAULT_FOAM_COLOR, max_alpha=0.666)
+
+
+def splat_particles(p: int, seed: int):
+    """A spray of p particles (CPU tensors) that meets every case the kernel
+    must treat as the plain route does: culled (visible False) and behind
+    the camera; near and large (sigma clamped to 2.2 px) and far and small
+    (clamped to 0.6, so the puff's narrowest lobe is 0.24); centres spread
+    across the frame's edges and off screen on every side."""
+    gen = torch.Generator().manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=gen)
+    z = torch.cat([u(p // 2) * 80 + 2, u(p // 8) * 4 + 1.5, u(p // 8) * 200 + 150,
+                   u(p - p // 2 - p // 8 * 2) * 20 - 19])
+    # x / z and y / z past the frustum's half-widths (0.70 wide, 0.39 high) on each side
+    pos = torch.stack([(u(p) * 2.0 - 1.0) * z * 0.85, 6.0 + (u(p) * 2.0 - 1.0) * z * 0.5, z], -1)
+    scale = u(p, 3) * 1.8 + 0.2
+    scale[p // 2:p // 2 + p // 8] *= 4.0
+    scale[p // 2 + p // 8:p // 2 + p // 4] *= 0.02
+    return pos, scale, u(p), u(p) > 0.15, u(p)
+
+
+def splat_routes(img, pos, scale, dissolve, visible, custom_z, sprite):
+    """(kernel route, plain route) on the card, from the same card tensors."""
+    args = (img, pos, scale, dissolve, visible)
+    before = splat.LAUNCHES
+    got = shading.splat_spray(*args, custom_z=custom_z, sprite=sprite, **SPLAT_KW)
+    torch.cuda.synchronize()
+    assert splat.LAUNCHES - before == 1                  # one kernel chain a call
+    want = shading._splat_spray_plain(*args, *SPLAT_KW.values(), custom_z, sprite)
+    return got, want
+
+
+@pytest.mark.parametrize("sprite", ["puff", "gaussian"])
+@pytest.mark.parametrize("with_custom_z", [False, True])
+def test_splat_kernel_matches_the_plain_route(card, sprite, with_custom_z):
+    """The splat kernel against `_splat_spray_plain` on the same card
+    tensors, at a frame whose size is no multiple of the 16 px tile: max abs
+    <= 1e-4 on the composite (both form the same bf16-rounded products; only
+    the order of the fp32 sum differs; measured 2.4e-7 to 3.6e-7 over the
+    four cases on an H100). Two calls are bit-equal."""
+    pos, scale, dissolve, visible, custom_z = splat_particles(8192, seed=21)
+    img = torch.rand((181, 317, 3), generator=torch.Generator().manual_seed(4))
+    x, y, z, dist, world_r, tan_half, focal = shading._spray_view(pos, scale, 317, **SPLAT_POSE)
+    sigma = torch.clamp(world_r * focal / torch.clamp_min(z, 0.5), 0.6, 2.2)[visible & (z > 0.5)]
+    assert bool((sigma == float(np.float32(0.6))).any()) and bool((sigma == float(np.float32(2.2))).any())
+    px = (x / (z * tan_half) + 1.0) * 0.5 * 317
+    assert bool((px < 0).any()) and bool((px > 317).any())
+    cz = custom_z.to(card) if with_custom_z else None
+    tensors = [t.to(card) for t in (img, pos, scale, dissolve, visible)]
+    got, want = splat_routes(*tensors, cz, sprite)
+    assert float((want - tensors[0]).abs().max()) > 0.1
+    assert float((got - want).abs().max()) <= 1e-4
+    again, _ = splat_routes(*tensors, cz, sprite)
+    assert torch.equal(again, got)
+
+
+def test_splat_kernel_with_every_lobe_in_one_tile(card):
+    """32768 puffs (196,608 lobes) at one point, each at the largest sigma:
+    every lobe lands in the same tiles, each tile's list holds them all (its
+    sort takes three passes). Faint enough that the sum stays below 1, so the
+    clamp hides no difference: max abs <= 1e-4 against the plain route
+    (measured 1.5e-5 on an H100: 196,608 terms a pixel in another order)."""
+    p = 32768
+    gen = torch.Generator().manual_seed(8)
+    pos = torch.tensor([[0.4, 5.0, 3.0]]).repeat(p, 1)
+    scale = torch.full((p, 3), 2.0)
+    dissolve = torch.rand(p, generator=gen) * 2e-4
+    img = torch.rand((72, 128, 3), generator=gen)
+    tensors = [t.to(card) for t in (img, pos, scale, dissolve, torch.ones(p, dtype=torch.bool))]
+    got, want = splat_routes(*tensors, None, "puff")
+    overlay = (want - tensors[0]).abs().max()
+    assert 0.05 < float(overlay) < 0.9
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_splat_kernel_turns_the_frame_nan_as_the_plain_route_does(card):
+    """A particle whose position is NaN gives NaN lobes: the plain route's
+    contraction is NaN everywhere, and so is the kernel's composite."""
+    pos, scale, dissolve, visible, custom_z = splat_particles(512, seed=2)
+    pos[7] = float("nan")
+    img = torch.rand((40, 64, 3), generator=torch.Generator().manual_seed(1))
+    got, want = splat_routes(*(t.to(card) for t in (img, pos, scale, dissolve, visible)),
+                             custom_z.to(card), "puff")
+    assert bool(want.isnan().all()) and bool(got.isnan().all())
+
+
 def test_frame_pipeline_on_card_returns_each_frame_once_in_order(card):
     """Frames rendered on the card come back through pinned buffers in
     order, each once, while later frames are queued; a returned array is
@@ -764,15 +853,18 @@ def test_graphed_render_is_bit_equal_to_eager(card, case):
     frames = []
     for wc, fc, pos, pitch, yaw, fov in poses + poses:
         with graphs.disabled():
-            counts = (tap.LAUNCHES, march.LAUNCHES)
+            counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES)
             eager = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
             torch.cuda.synchronize()
-            eager_counts = (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1])
-        counts = (tap.LAUNCHES, march.LAUNCHES)
+            eager_counts = (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
+                            splat.LAUNCHES - counts[2])
+        counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES)
         img = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
         torch.cuda.synchronize()
-        assert (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1]) == eager_counts
-        assert eager_counts == (1, 1 if case == "march_pallas" else 0)
+        assert (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
+                splat.LAUNCHES - counts[2]) == eager_counts
+        assert eager_counts == (1, 1 if case == "march_pallas" else 0,
+                                1 if case == "render_spray" else 0)
         assert torch.equal(img, eager)
         frames.append(img)
     assert r.programs[case.replace("march_pallas", "render")].num_graphs == 1
@@ -804,7 +896,8 @@ def test_graphed_spray_session_is_bit_equal_through_a_restore(card):
 def test_graphed_batched_step_is_bit_equal_to_eager(card):
     """make_batched_step with K = 4 at 256^2 bf16, twice (the second call a
     replay): frames, state, spray state and the last maps equal the eager
-    step's bit for bit; K1 2 a tick and K5 1 a tick, as eagerly."""
+    step's bit for bit; K1 2 a tick, K5 and the splat chain 1 a tick, as
+    eagerly."""
     ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
     r = SceneRenderer(128, 72, **GRAPH_TIER)
     sp_params, sp_state = SpraySession(num_particles=2048, device=card).ensure_init()
@@ -815,12 +908,13 @@ def test_graphed_batched_step_is_bit_equal_to_eager(card):
         state, sps, clock, seq = ocean.state, sp_state, 0.0, []
         with ctx:
             for _ in range(2):
-                before = (fused_step.LAUNCHES, tap.LAUNCHES)
+                before = (fused_step.LAUNCHES, tap.LAUNCHES, splat.LAUNCHES)
                 state, sps, frames, last = fn(state, ocean.params, sps, clock, ocean.water_color,
                                               ocean.foam_color, (0.0, 12.0, 0.0), -12.0, 0.0,
                                               70.0, 1 / 30)
                 torch.cuda.synchronize()
-                assert (fused_step.LAUNCHES - before[0], tap.LAUNCHES - before[1]) == (8, 4)
+                assert (fused_step.LAUNCHES - before[0], tap.LAUNCHES - before[1],
+                        splat.LAUNCHES - before[2]) == (8, 4, 4)
                 clock += 4 / 30
                 seq.append((frames, state, sps, last))
         outs[mode] = seq

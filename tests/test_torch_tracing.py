@@ -372,7 +372,7 @@ def test_the_frame_loop_counts_frames_waits_and_kernels_on_the_card(card):
     assert spans["graph.launch"]["count"] == 8 and "graph.capture" not in spans
     assert spans["kernel.fused_step"]["count"] == 4
     assert {k: v for k, v in counters.items() if k.startswith("launches.")} == {
-        "launches.fused_step": 8, "launches.tap": 4}
+        "launches.fused_step": 8, "launches.tap": 4, "launches.splat": 4}
     assert {("kernel.fused_step", "ocean.step"), ("graph.spray_step", "spray.advance"),
             ("graph.render_spray", "render.frame")} <= {(r.name, r.parent)
                                                          for r in observability.spans()}
