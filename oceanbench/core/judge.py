@@ -78,23 +78,30 @@ class Judge:
         self.control = control
         self._replay = {}
 
+    def chain(self, wanted: frozenset, own: bool, start: tuple | None = None):
+        """Yields (update, [(disp, normal, foam) per cascade]) for the `wanted`
+        updates in order: the reference's (or the control's, `own=False`),
+        stepping through every update up to the last of them, from zero foam
+        at the run's first update or from `start`, (foam (C, N, N), update)."""
+        step = self.ref.step if own else self.ref.control_step
+        n, dev, cascades = self.ref.n, self.ref.device, range(self.ref.num_cascades)
+        if start is None:
+            foam = [torch.zeros((n, n), dtype=torch.float64, device=dev) for _ in cascades]
+            first = 0
+        else:
+            foam = [start[0][c].to(dev, torch.float64) for c in cascades]
+            first = start[1]
+        for u in range(first, max(wanted) + 1):
+            outs = [step(c, foam[c], u) for c in cascades]
+            foam = [o[2] for o in outs]
+            if u in wanted:
+                yield u, outs
+
     def replay(self, wanted: frozenset, own: bool):
-        """The reference's (or the control's, `own=False`) outputs of the
-        `wanted` updates, stepping from zero foam through every update up to
-        the last of them: {update: [(disp, normal, foam) per cascade]}."""
+        """`chain` from zero foam, kept: {update: [(disp, normal, foam) per cascade]}."""
         key = (wanted, own)
         if key not in self._replay:
-            step = self.ref.step if own else self.ref.control_step
-            n, dev = self.ref.n, self.ref.device
-            foam = [torch.zeros((n, n), dtype=torch.float64, device=dev)
-                    for _ in range(self.ref.num_cascades)]
-            out = {}
-            for u in range(max(wanted) + 1):
-                outs = [step(c, foam[c], u) for c in range(self.ref.num_cascades)]
-                foam = [o[2] for o in outs]
-                if u in wanted:
-                    out[u] = outs
-            self._replay[key] = out
+            self._replay[key] = dict(self.chain(wanted, own))
         return self._replay[key]
 
     def step_outputs(self, samples: list, replay_ticks: int):

@@ -5,14 +5,17 @@ the entry in `BENCHMARK.json` that uses it:
 
 - `workloads/<cell>.json`: the traffic mix, naming its config and driver;
 - `configs/<config>.json`: the configuration, as `BENCHMARK.json`'s `file`;
-- `drivers/<driver>.py`: a `Driver` class that runs the mix;
+- `drivers/<driver>.py`: a `Driver` class that runs the mix; it reaches the
+  program only through `core/program.py`: the objects it makes, or any public entry
+  of the program by its dotted path (`program.entry("models.ocean.step_frames")`);
 - `metrics/<metric>.py`: a `read(records)` function for one metric; a
   quantity split by cell family (`frame_ms.scene_1024`, where one bound or
   one `moves` cannot serve every cell) is read by `metrics/<quantity>.py`
   unless the split has a file of its own.
 
-A later change adds a cell, a configuration or a metric by adding files and
-entries; no file here needs an edit for it.
+A later change adds a cell, a configuration, a metric, or a driver of
+another entry of the program by adding files and entries; no file here or in
+`core/program.py` needs an edit for it.
 """
 from __future__ import annotations
 

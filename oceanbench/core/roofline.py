@@ -43,3 +43,23 @@ def step_bound(cascades: int, n: int, map_dtype: str) -> tuple[float, str]:
     4 layers a cascade (2 n transforms of length n a layer; modulate and
     unpack not counted)."""
     return bound(step_bytes(cascades, n, map_dtype), fft_flops(n, cascades * 4 * 2 * n))
+
+
+def frames_bytes(cascades: int, n: int, map_dtype: str, frames: int) -> int:
+    """A call of `frames` frames, each byte once: the spectra, omega and
+    foam in once (24 B a texel), every frame's displacement and normal out
+    in the map dtype (7 channels a texel), the final foam out once (4 B a
+    texel), and the scalar rows in. The spectra are fetched once a cascade
+    for the whole call."""
+    texel_in = 2 * 4 + 2 * 4 + 4 + 4
+    texel_out = frames * 7 * MAP_BYTES[map_dtype] + 4
+    return cascades * (n * n * (texel_in + texel_out) + NUM_SCALARS * 4)
+
+
+def frames_bound(cascades: int, n: int, map_dtype: str, frames: int) -> tuple[float, str]:
+    """A frame's share of the least time of a call of `frames` frames: the
+    call's bytes, and `frames` times a step's FFT operations, over
+    `frames`."""
+    least, by = bound(frames_bytes(cascades, n, map_dtype, frames),
+                      frames * fft_flops(n, cascades * 4 * 2 * n))
+    return least / frames, by

@@ -72,6 +72,7 @@ class RefOcean:
             self._k.append((kx, ky, k))
         self.t0 = [_f32(_f32(120.0) + _f32(_f32(np.pi) * _f32(i))) for i in range(len(specs))]
         self._times = np.zeros((0, len(specs)), np.float32)
+        self._on_device = {}
         sign = (np.add.outer(np.arange(n), np.arange(n)) % 2) * -2 + 1
         self._sign = torch.as_tensor(sign, dtype=torch.float64, device=self.device)
 
@@ -102,17 +103,23 @@ class RefOcean:
         dt = float(self.dt32)
         return dt * amount * 7.5, dt * max(10.0 - amount, 0.5) * 1.15
 
+    def _constants(self, c: int):
+        """Cascade c's h0, conj(h0(-k)) (complex128), omega (fp32) and k-grid
+        (float64) on the device, copied there once."""
+        if c not in self._on_device:
+            on = lambda a: torch.as_tensor(a, device=self.device)
+            self._on_device[c] = (on(self._h0[c]).to(torch.complex128),
+                                  on(self._h0nc[c]).to(torch.complex128), on(self._omega[c]),
+                                  *(on(v).double() for v in self._k[c]))
+        return self._on_device[c]
+
     def _layers(self, c: int, update: int) -> torch.Tensor:
         """(4, N, N) complex128 packed layers of cascade c at its time."""
-        dev = self.device
+        h0, h0nc, omega, kx, ky, k = self._constants(c)
         t32 = self.time(update)[c]
-        phase32 = (self._omega[c] * t32).astype(np.float32)      # omega * t in fp32
-        phase = torch.as_tensor(phase32, device=dev).double()
+        phase = (omega * float(t32)).double()        # omega * t in fp32, one rounding
         mod = torch.polar(torch.ones_like(phase), phase)
-        h0 = torch.as_tensor(self._h0[c], device=dev).to(torch.complex128)
-        h0nc = torch.as_tensor(self._h0nc[c], device=dev).to(torch.complex128)
         h = h0 * mod + h0nc * torch.conj(mod)
-        kx, ky, k = (torch.as_tensor(v, device=dev).double() for v in self._k[c])
         kux, kuy = kx / k, ky / k
         ih = 1j * h
         hx, hy, hz = ih * kuy, h, ih * kux

@@ -22,10 +22,14 @@ def root(tmp_path):
 
 
 def _patch_step(monkeypatch, broken):
+    """`broken` in place of the step (`Ocean.update`'s) and of a call of K
+    frames (`step_frames`, whose maps carry a frame axis: (C, K, 3|4, N, N))."""
     from godotoceanwaves_tpu_torch.models import ocean
-    real = ocean.step
+    real, real_frames = ocean.step, ocean.step_frames
     monkeypatch.setattr(ocean, "step", lambda config, state, params, dt: broken(
         real, config, state, params, dt))
+    monkeypatch.setattr(ocean, "step_frames", lambda config, state, params, dt, k: broken(
+        lambda *a: real_frames(*a, k), config, state, params, dt))
 
 
 def state_unchanged(real, config, state, params, dt):
@@ -46,7 +50,7 @@ def half_the_cascades(real, config, state, params, dt):
 def altered_map(real, config, state, params, dt):
     new, maps = real(config, state, params, dt)
     disp = maps.displacement.clone()
-    disp[0, 1, 0, :4] += 0.5          # four texels of one height row, half a metre up
+    disp[0, ..., 1, 0, :4] += 0.5     # four texels of one height row, half a metre up
     return new, dataclasses.replace(maps, displacement=disp)
 
 
@@ -56,6 +60,53 @@ def altered_map(real, config, state, params, dt):
 def test_a_broken_step_is_not_correct(cell, fault, root, monkeypatch):
     _patch_step(monkeypatch, fault)
     result = tiny.run(root, cell)
+    assert not result["correct"] and result["failed"] > 0, result["checks"]
+
+
+def middle_frames_scaled(real, config, state, params, dt):
+    new, maps = real(config, state, params, dt)
+    disp, normal = maps.displacement.clone(), maps.normal.clone()
+    disp[:, 1:-1] *= 1 + 1e-2
+    normal[:, 1:-1] *= 1 + 1e-2
+    return new, dataclasses.replace(maps, displacement=disp, normal=normal)
+
+
+def final_foam_perturbed(real, config, state, params, dt):
+    new, maps = real(config, state, params, dt)
+    return new.replace(foam=new.foam + 1e-3), maps
+
+
+def first_and_last_frames_swapped(real, config, state, params, dt):
+    new, maps = real(config, state, params, dt)
+    order = list(range(maps.displacement.shape[1]))
+    order[0], order[-1] = order[-1], order[0]
+    return new, dataclasses.replace(maps, displacement=maps.displacement[:, order],
+                                    normal=maps.normal[:, order])
+
+
+@pytest.mark.parametrize("fault", [middle_frames_scaled, final_foam_perturbed,
+                                   first_and_last_frames_swapped], ids=lambda f: f.__name__)
+def test_a_broken_call_of_frames_is_not_correct(fault, root, monkeypatch):
+    _patch_step(monkeypatch, fault)
+    result = tiny.run(root, "ocean4_1024.frames48")
+    assert not result["correct"] and result["failed"] > 0, result["checks"]
+
+
+def one_middle_frame_scaled(real, config, state, params, dt):
+    new, maps = real(config, state, params, dt)
+    k = maps.displacement.shape[1] // 2 - 1          # frame 23 of 48; the foam left alone
+    disp, normal = maps.displacement.clone(), maps.normal.clone()
+    disp[:, k] *= 1 + 1e-2
+    normal[:, k] *= 1 + 1e-2
+    return new, dataclasses.replace(maps, displacement=disp, normal=normal)
+
+
+@pytest.mark.parametrize("seed", [tiny.SEED, 7, 2 ** 40 + 11])
+def test_one_broken_middle_frame_is_not_correct_on_every_seed(seed, root, monkeypatch):
+    """The judge holds every frame of the first call, so a fault in one
+    middle frame fails whatever frames the seed draws for the later calls."""
+    _patch_step(monkeypatch, one_middle_frame_scaled)
+    result = tiny.run(root, "ocean4_1024.frames48", seed=seed)
     assert not result["correct"] and result["failed"] > 0, result["checks"]
 
 
