@@ -426,7 +426,7 @@ def step_pass_registers(nvcc_log: str) -> dict:
     out, name, stack, spills = {}, None, 0, 0
     for line in nvcc_log.splitlines():
         entry = re.search(r"Compiling entry function '\S*(step_(?:rows|cols)_kernel)ILi(\d+)ELi"
-                          r"(\d+)E(?:Li\d+E)*(f|13__nv_bfloat16|6__half)?E", line)
+                          r"(\d+)E(?:Li\d+E)*(f|13__nv_bfloat16|6__half)?(?:Li\d+E)*E", line)
         if entry:
             kernel, log2m, split, dtype = entry.groups()
             args = [log2m, split] + ([dtypes[dtype]] if dtype else [])

@@ -13,7 +13,11 @@
 // Bound: device memory bandwidth. Per cascade-frame at 1024^2: 20 MB of
 // spectra + omega in, 4 MB of foam in and 4 out, 14 MB of bf16 maps out
 // (~44 MB, 0.013 ms at 3.35 TB/s), plus 32 MB of scratch written and read
-// back.
+// back. Measured at 4 x 1024^2 on an H100 the pair moves ~1.8 TB/s: the
+// scratch's round trip is not what holds it there (a one-cascade scratch
+// that fits L2 was no faster), each launch's ramp and tail are (~5.6 us a
+// launch), so the multi-frame launch (ops/fused_step.py) runs its row passes
+// on a stream of their own, ahead of the column passes, to overlap them.
 //
 // Accuracy: no fast math. omega * t reaches ~6.7e3 rad at 1024^2 (t ~ 126 s),
 // so sincosf keeps its full range reduction.
@@ -32,6 +36,15 @@ long long fused_smem(int log2n, int lines, int pitch, int jpitch, int n) {
     return log2n > kStepMaxLog2N ? -1 : step_smem(log2n, lines, pitch, jpitch, n);
 }
 
+// The passes' launch bounds: at 1024, blocks of 256 threads capped at 48
+// registers, 5 an SM (no spill, ptxas), which measured faster than 4 at 64
+// on an H100 (both passes: 0.2467 -> 0.2409 ms a frame at 4 x 1024^2 issued
+// on one stream, 0.2208 -> 0.2161 pipelined); below, the default.
+template <int LOG2N>
+constexpr int kThreads = LOG2N == 10 ? 256 : kMaxThreads;
+template <int LOG2N>
+constexpr int kBlocks = LOG2N == 10 ? 5 : kMinBlocks;
+
 template <int LOG2N>
 struct RowsLaunch {
     static int run(const float* h0, const float* h0nc, const float* omega, const float* scal,
@@ -40,9 +53,11 @@ struct RowsLaunch {
         if constexpr (LOG2N > kStepMaxLog2N) {
             return static_cast<int>(cudaErrorInvalidValue);
         } else {
-            if (int rc = allow_smem(step_rows_kernel<LOG2N, 1>, smem)) return rc;
-            step_rows_kernel<LOG2N, 1><<<dim3((1 << LOG2N) / rows, c),
-                                         (rows * kLayers) << Shape<LOG2N>::kLog2T, smem, stream>>>(
+            const auto kernel = step_rows_kernel<LOG2N, 1, kThreads<LOG2N>, kBlocks<LOG2N>>;
+            const int threads = (rows * kLayers) << Shape<LOG2N>::kLog2T;
+            if (threads > kThreads<LOG2N>) return static_cast<int>(cudaErrorInvalidValue);
+            if (int rc = allow_smem(kernel, smem)) return rc;
+            kernel<<<dim3((1 << LOG2N) / rows, c), threads, smem, stream>>>(
                 h0, h0nc, omega, scal, tw, tw, scratch, rows, pitch, jpitch, frame);
             return static_cast<int>(cudaGetLastError());
         }
@@ -60,10 +75,12 @@ struct ColsFor {
             if constexpr (LOG2N > kStepMaxLog2N) {
                 return static_cast<int>(cudaErrorInvalidValue);
             } else {
-                if (int rc = allow_smem(step_cols_kernel<LOG2N, 1, OutT>, smem)) return rc;
-                step_cols_kernel<LOG2N, 1, OutT><<<dim3((1 << LOG2N) / cols, c),
-                                                   (cols * kLayers) << Shape<LOG2N>::kLog2T, smem,
-                                                   stream>>>(
+                const auto kernel =
+                    step_cols_kernel<LOG2N, 1, OutT, kThreads<LOG2N>, kBlocks<LOG2N>>;
+                const int threads = (cols * kLayers) << Shape<LOG2N>::kLog2T;
+                if (threads > kThreads<LOG2N>) return static_cast<int>(cudaErrorInvalidValue);
+                if (int rc = allow_smem(kernel, smem)) return rc;
+                kernel<<<dim3((1 << LOG2N) / cols, c), threads, smem, stream>>>(
                     scratch, foam_in, scal, tw, tw, static_cast<OutT*>(disp),
                     static_cast<OutT*>(normal), foam_out, cols, pitch, jpitch, disp_cstride,
                     norm_cstride);
@@ -93,6 +110,15 @@ int fused_step_rows(const float* h0, const float* h0nc, const float* omega, cons
     return dispatch<RowsLaunch>(log2n, h0, h0nc, omega, scal, reinterpret_cast<const float2*>(tw),
                                 scratch, c, frame, rows, pitch, jpitch, smem,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// A non-blocking stream of the caller's own on the current device, for the
+// multi-frame launch's row passes (ops/fused_step.py): no other code launches
+// on it, so a graph capture that takes it in holds only the caller's work.
+// Returns a cudaError_t.
+int fused_step_stream(void** stream) {
+    return static_cast<int>(cudaStreamCreateWithFlags(reinterpret_cast<cudaStream_t*>(stream),
+                                                      cudaStreamNonBlocking));
 }
 
 // Column pass + unpack + foam. `dtype`: 0 float32, 1 bfloat16, 2 float16.

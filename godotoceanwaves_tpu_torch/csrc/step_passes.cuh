@@ -104,7 +104,7 @@ __device__ __forceinline__ float2 unit_root(const float2* __restrict__ tw, int k
 
 // MAX_THREADS and MIN_BLOCKS are the launch bounds: the default caps a
 // thread at 64 registers; the strip step's 256-thread row blocks at 2048
-// take 48, 5 blocks an SM.
+// take 48, 5 blocks an SM, and so do both of the fused step's passes at 1024.
 template <int LOG2M, int SPLIT, int MAX_THREADS = kMaxThreads, int MIN_BLOCKS = kMinBlocks>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
@@ -196,8 +196,9 @@ step_rows_kernel(const float* __restrict__ h0, const float* __restrict__ h0nc,
     }
 }
 
-template <int LOG2M, int SPLIT, typename OutT>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+template <int LOG2M, int SPLIT, typename OutT, int MAX_THREADS = kMaxThreads,
+          int MIN_BLOCKS = kMinBlocks>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 step_cols_kernel(const float* __restrict__ scratch,
                  const float* foam_in,     // may alias foam_out
                  const float* __restrict__ scal, const float2* __restrict__ tw,

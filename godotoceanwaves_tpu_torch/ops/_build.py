@@ -43,6 +43,8 @@ _SIGNATURES = {
     # fused_step_cols(scratch, foam_in, scal, tw, disp, normal, foam_out, c, n,
     #                 dtype, disp_cstride, norm_cstride, cols, pitch, jpitch, stream)
     "fused_step_cols": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _I, _I, _I, _P),
+    # fused_step_stream(&stream)
+    "fused_step_stream": (_PP,),
     # strip_step_rows(h0, h0nc, omega, scal, tw, twn, scratch, c, n, rows, pitch, jpitch,
     #                 stream)
     "strip_step_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

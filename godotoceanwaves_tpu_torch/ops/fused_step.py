@@ -9,11 +9,18 @@ twiddle table of `fft_plan`; see the design note there); on a CPU tensor
 they run the plain PyTorch version built from `modulate`, `fft` and
 `unpack`.
 
-The pair is bound by device memory bandwidth: about 44 MB per cascade-frame
-at 1024^2 (spectra, omega and foam in; foam and bf16 maps out), plus a
-32 MB fp32 scratch written and read back, (C, N, N, 8): the 4 transformed
-layers of a texel as one 32-byte record. It pays that round trip in
-exchange for never holding a whole layer on chip.
+The pair moves about 44 MB per cascade-frame at 1024^2 (spectra, omega and
+foam in; foam and bf16 maps out), plus a 32 MB fp32 scratch written and read
+back, (C, N, N, 8): the 4 transformed layers of a texel as one 32-byte
+record. It pays that round trip in exchange for never holding a whole layer
+on chip. The round trip is not what holds the pair back at 4 x 1024^2 (on
+an H100, a scratch of one cascade, small enough for L2, made the pair no
+faster, and a persisting L2 window over it neither); each launch's ramp and
+tail are, ~5.6 us a launch. So the multi-frame launch overlaps the passes:
+its row passes run on a stream of their own, up to PIPELINE - 1 frames ahead
+of the column passes on the caller's stream, each frame into its own scratch
+(`frame_pipeline`), and one pass's tail fills with the other's blocks. The
+single step stays one pair on the caller's stream.
 
 What the TPU kernel needed and this one does not: the VMEM-resident
 four-step DFT, the sigma digit un-swap, the map-dtype keeper planes (normals
@@ -21,6 +28,9 @@ here come from fp32 gradients, rounded once, as the staged path does) and
 the f16 output-window cast (Hopper stores f16 natively).
 """
 from __future__ import annotations
+
+import ctypes
+import threading
 
 import torch
 
@@ -106,8 +116,79 @@ def fused_cascade_multi_step_reference(h0, h0nc, omega, foam, scalars, *,
     return torch.stack(disps, dim=1), torch.stack(normals, dim=1), foam
 
 
-def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi: bool):
+# Scratches of the multi-frame launch: its row passes run on a stream of their
+# own, up to PIPELINE - 1 frames ahead of the column passes.
+PIPELINE = 3
+
+_row_streams = threading.local()   # .by_device: {device index: torch.cuda.ExternalStream}
+
+
+def frame_pipeline(num_frames: int, depth: int = PIPELINE) -> list[tuple[int, int, int | None]]:
+    """The multi-frame launch's plan, a row and a column pass a frame, in
+    launch order: (frame k, its scratch k mod depth, the frame whose column
+    pass must have read that scratch before the row pass of k writes it, or
+    None while it is fresh)."""
+    return [(k, k % depth, k - depth if k >= depth else None) for k in range(num_frames)]
+
+
+def _row_stream(lib, device: torch.device) -> torch.cuda.ExternalStream:
+    """This thread's stream for the row passes on `device`, made by the
+    kernel library and kept for the process: no other code or thread
+    launches on it, so a graph capture that takes it in holds only this
+    thread's row passes."""
+    streams = getattr(_row_streams, "by_device", None)
+    if streams is None:
+        streams = _row_streams.by_device = {}
+    if device.index not in streams:
+        handle = ctypes.c_void_p()
+        rc = lib.fused_step_stream(ctypes.byref(handle))
+        if rc:
+            raise RuntimeError(f"fused_step_stream failed: cudaError {rc}")
+        streams[device.index] = torch.cuda.ExternalStream(handle.value, device=device)
+    return streams[device.index]
+
+
+def _pass(lib, name, *args):
     global LAUNCHES
+    from ..utils import graphs
+    rc = getattr(lib, name)(*args)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES += graphs.counted(__name__)
+
+
+def _launch_frames(lib, main, rows_stream, h0, h0nc, omega, foam, scalars, tw, scratches,
+                   disp, normal, foam_out, plans, map_dtype):
+    """Launch the multi-frame step by `frame_pipeline`: frame k's row pass
+    (all cascades) on `rows_stream` into scratch k mod depth, its column pass
+    on `main` once that row pass is done. Foam carries in place: frame 0
+    reads `foam`, later frames `foam_out`. Both streams start after what
+    `main` holds, and `main` ends after both."""
+    (rows, cols), c, n = plans, h0.shape[0], h0.shape[-1]
+    fork = torch.cuda.Event()
+    fork.record(main)
+    rows_stream.wait_event(fork)
+    freed = {}
+    for k, slot, wait in frame_pipeline(disp.shape[1], len(scratches)):
+        s = scratches[slot].data_ptr()
+        if wait is not None:
+            rows_stream.wait_event(freed.pop(wait))
+        _pass(lib, "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
+              scalars.data_ptr(), tw.data_ptr(), s, c, n, k, rows.lines, rows.pitch,
+              rows.join_pitch, rows_stream.cuda_stream)
+        ready = torch.cuda.Event()
+        ready.record(rows_stream)
+        main.wait_event(ready)         # the last one joins rows_stream back into main
+        d_k, n_k = disp[:, k], normal[:, k]
+        _pass(lib, "fused_step_cols", s, (foam if k == 0 else foam_out).data_ptr(),
+              scalars.data_ptr(), tw.data_ptr(), d_k.data_ptr(), n_k.data_ptr(),
+              foam_out.data_ptr(), c, n, DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0),
+              cols.lines, cols.pitch, cols.join_pitch, main.cuda_stream)
+        freed[k] = torch.cuda.Event()
+        freed[k].record(main)
+
+
+def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi: bool):
     c, _, n, _ = h0.shape
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
@@ -116,36 +197,32 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
             f"port of godotoceanwaves_tpu/ops/pallas_strip.py), other sizes take the "
             f"staged path (SimConfig.step_tier)")
     from . import _build
-    from ..utils import graphs, observability
+    from ..utils import observability
     lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
+        main = torch.cuda.current_stream(dev)
+        plans = rows, cols = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
         tw = fft_plan.twiddles(n, dev)
-        scratch = torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32, device=dev)
+        scratches = [torch.empty((c, n, n, 2 * fft_plan.LAYERS), dtype=torch.float32,
+                                 device=dev) for _ in range(min(num_frames, PIPELINE))]
         lead = (c, num_frames) if multi else (c,)
         disp = torch.empty(lead + (3, n, n), dtype=map_dtype, device=dev)
         normal = torch.empty(lead + (4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
         with observability.span("kernel.fused_step"):
-            for k in range(num_frames):
-                rc = lib.fused_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                         scalars.data_ptr(), tw.data_ptr(), scratch.data_ptr(),
-                                         c, n, k, rows.lines, rows.pitch, rows.join_pitch, stream)
-                if rc:
-                    raise RuntimeError(f"fused_step_rows launch failed: cudaError {rc}")
-                LAUNCHES += graphs.counted(__name__)
-                foam_in = foam if k == 0 else foam_out   # in place from frame 1 on
-                d_k, n_k = (disp[:, k], normal[:, k]) if multi else (disp, normal)
-                rc = lib.fused_step_cols(
-                    scratch.data_ptr(), foam_in.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
-                    d_k.data_ptr(), n_k.data_ptr(), foam_out.data_ptr(), c, n,
-                    DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0), cols.lines,
-                    cols.pitch, cols.join_pitch, stream)
-                if rc:
-                    raise RuntimeError(f"fused_step_cols launch failed: cudaError {rc}")
-                LAUNCHES += graphs.counted(__name__)
+            if multi:
+                _launch_frames(lib, main, _row_stream(lib, dev), h0, h0nc, omega, foam, scalars,
+                               tw, scratches, disp, normal, foam_out, plans, map_dtype)
+            else:
+                s, stream = scratches[0].data_ptr(), main.cuda_stream
+                _pass(lib, "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
+                      scalars.data_ptr(), tw.data_ptr(), s, c, n, 0, rows.lines, rows.pitch,
+                      rows.join_pitch, stream)
+                _pass(lib, "fused_step_cols", s, foam.data_ptr(), scalars.data_ptr(),
+                      tw.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c,
+                      n, DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0), cols.lines,
+                      cols.pitch, cols.join_pitch, stream)
     return disp, normal, foam_out
 
 
@@ -180,8 +257,10 @@ def fused_cascade_multi_step(h0, h0nc, omega, foam, scalars, *, num_frames: int,
     """K consecutive frames; frame k modulates at scalars[S_TIME] + k*scalars[S_DT].
 
     Returns (displacement (C,K,3,N,N), normal (C,K,4,N,N), final foam (C,N,N)).
-    On the card each frame is one row-pass and one column-pass launch; foam
-    carries across frames in place.
+    On the card each frame is one row-pass and one column-pass launch over
+    all cascades, the row passes on a stream of their own up to PIPELINE - 1
+    frames ahead of the column passes (`frame_pipeline`); foam carries
+    across frames in place.
     """
     return _dispatch(h0, h0nc, omega, foam, scalars, num_frames=num_frames,
                      map_dtype=map_dtype, multi=True)

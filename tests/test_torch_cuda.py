@@ -126,6 +126,51 @@ def test_multi_step_kernel_at_1024_carries_foam_in_place(card, dtype):
                      (want[0][:, k], want[1][:, k], want[2]), two_byte=dtype != "float32")
 
 
+def config4_inputs(dev, frames: int):
+    """Config 4's step inputs: the scene's three cascades and its cascade 0
+    again at 1024^2, seeded foam, the scalar rows of `step_frames` at dt 0.02."""
+    base = T.default_cascades(device=dev)
+    params = base.map(lambda x: torch.cat([x, x[:1]]))
+    state = T.init_state(T.SimConfig(map_size=1024), params)
+    rng = np.random.default_rng(frames)
+    foam = torch.from_numpy(rng.uniform(0, 0.5, (4, 1024, 1024)).astype(np.float32)).to(dev)
+    grow, decay = _foam_rates(params, 0.02)
+    scal = fused_step.pack_scalars(state.time + 120.0, params.tile_length, params.whitecap,
+                                   grow, decay, dt=0.02)
+    return state.h0, state.h0nc, state.omega, foam, scal
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pipelined_multi_frame_launch_is_bit_equal_to_the_pairs_in_turn(card, dtype):
+    """Config 4 (C = 4, N = 1024): the multi-frame launch, its row passes on
+    a stream of their own running ahead of the column passes, against the
+    batched pair run a frame at a time. One frame equals
+    `fused_cascade_step`; six frames equal six `fused_cascade_step` calls at
+    t0 + k dt in turn, foam chained, and the same call on each cascade's
+    slice alone: maps and final foam, bit for bit, 2 launches a frame."""
+    mdt = DTYPES[dtype]
+    h0, h0nc, omega, foam, scal = args = config4_inputs(card, 6)
+    d1, n1, f1 = fused_step.fused_cascade_multi_step(*args, num_frames=1, map_dtype=mdt)
+    d, nm, f = fused_step.fused_cascade_step(*args, map_dtype=mdt)
+    assert torch.equal(d1[:, 0], d) and torch.equal(n1[:, 0], nm) and torch.equal(f1, f)
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_cascade_multi_step(*args, num_frames=6, map_dtype=mdt)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 2 * 6
+    f = foam
+    for k in range(6):
+        single = scal.clone()
+        single[:, 0, fused_step.S_TIME] = (scal[:, 0, fused_step.S_TIME]
+                                           + scal[:, 0, fused_step.S_DT] * float(k))
+        d, nm, f = fused_step.fused_cascade_step(h0, h0nc, omega, f, single, map_dtype=mdt)
+        assert torch.equal(got[0][:, k], d) and torch.equal(got[1][:, k], nm)
+    assert torch.equal(got[2], f)
+    for i in range(4):
+        alone = fused_step.fused_cascade_multi_step(*(a[i:i + 1] for a in args), num_frames=6,
+                                                    map_dtype=mdt)
+        assert all(torch.equal(g[i:i + 1], a) for g, a in zip(got, alone))
+
+
 def test_step_kernel_makes_no_host_sync(card):
     """Two K1 frames at 1024^2 (bf16 maps), plans and twiddle table
     included, under set_sync_debug_mode("error"): no host sync, 2 launches a

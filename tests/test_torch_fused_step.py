@@ -13,6 +13,7 @@ import dataclasses
 import functools
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import jax
@@ -27,7 +28,7 @@ from godotoceanwaves_tpu.models.ocean import _foam_rates as jax_foam_rates
 from godotoceanwaves_tpu.ops import pallas_step
 
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
-from godotoceanwaves_tpu_torch.ops import fused_step
+from godotoceanwaves_tpu_torch.ops import fft_plan, fused_step
 from godotoceanwaves_tpu_torch.utils import convert
 
 N = 128
@@ -184,6 +185,135 @@ def test_kernel_launcher_rejects_sizes_it_does_not_cover(n):
     args = (meta(1, 2, n, n), meta(1, 2, n, n), meta(1, n, n), meta(1, n, n), meta(1, 1, 8))
     with pytest.raises(NotImplementedError, match="pallas_strip"):
         fused_step._launch(*args, num_frames=1, map_dtype=torch.float32, multi=False)
+
+
+class _Log:
+    """Stands in for the kernel library, the streams and the events of the
+    multi-frame launch: records every operation in the order made."""
+
+    def __init__(self):
+        self.ops = []
+
+    def fused_step_rows(self, *args):
+        self.ops.append(("rows", args[-1], args))
+        return 0
+
+    def fused_step_cols(self, *args):
+        self.ops.append(("cols", args[-1], args))
+        return 0
+
+    def stream(self, handle):
+        log = self
+
+        class Stream:
+            cuda_stream = handle
+
+            def wait_event(self, event):
+                log.ops.append(("wait", handle, event))
+
+        return Stream()
+
+    def event_class(self):
+        log = self
+
+        class Event:
+            def record(self, stream):
+                log.ops.append(("record", stream.cuda_stream, self))
+
+        return Event
+
+
+def _reaches(ops):
+    """reach[j]: the operations that operation j waits for, on the device:
+    the one before it on its stream, and the last record of an event it waits on."""
+    reach, last_on, recorded = [], {}, {}
+    for j, (kind, stream, arg) in enumerate(ops):
+        before = set()
+        for i in ([last_on[stream]] if stream in last_on else []) + (
+                [recorded[id(arg)]] if kind == "wait" else []):
+            before |= reach[i] | {i}
+        reach.append(before)
+        last_on[stream] = j
+        if kind == "record":
+            recorded[id(arg)] = j
+    return reach
+
+
+@pytest.mark.parametrize("cascades,frames,depth,dtype", [(4, 7, 3, torch.bfloat16),
+                                                         (3, 2, 3, torch.float32),
+                                                         (1, 5, 2, torch.float16)])
+def test_multi_frame_launch_pipelines_row_passes_ahead_of_column_passes(
+        monkeypatch, cascades, frames, depth, dtype):
+    """The multi-frame launch makes each frame's row pass (all cascades) on
+    the row stream into scratch k mod depth and its column pass on the
+    caller's stream, frames in order, each once. On the device: a column
+    pass runs after its frame's row pass and the column pass before it (the
+    foam chain); a row pass overwrites a scratch only after every earlier
+    column pass that reads it; the row stream starts after what the caller's
+    stream held and joins it before the call returns. Pointers: the batched
+    pair's, at frame k's maps."""
+    n = 16
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt)
+    h0, h0nc, omega = z(cascades, 2, n, n), z(cascades, 2, n, n), z(cascades, n, n)
+    foam, foam_out, scal = z(cascades, n, n), z(cascades, n, n), z(cascades, 1, 8)
+    scratches = [z(cascades, n, n, 2 * fft_plan.LAYERS) for _ in range(depth)]
+    tw = z(n // 2, 2)
+    disp, normal = z(cascades, frames, 3, n, n, dt=dtype), z(cascades, frames, 4, n, n, dt=dtype)
+    plans = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
+    log, before = _Log(), fused_step.LAUNCHES
+    monkeypatch.setattr(torch.cuda, "Event", log.event_class())
+    log.ops.append(("cols", 1, None))          # earlier work on the caller's stream
+    fused_step._launch_frames(log, log.stream(1), log.stream(2), h0, h0nc, omega, foam, scal,
+                              tw, scratches, disp, normal, foam_out, plans, dtype)
+    log.ops.append(("cols", 1, None))          # later work on the caller's stream
+    ops, reach = log.ops, _reaches(log.ops)
+    assert fused_step.LAUNCHES == before + 2 * frames
+    assert fused_step.frame_pipeline(frames, depth) == [
+        (k, k % depth, k - depth if k >= depth else None) for k in range(frames)]
+    rows = [j for j, op in enumerate(ops) if op[0] == "rows"]
+    cols = [j for j, op in enumerate(ops) if op[0] == "cols"][1:-1]
+    assert len(rows) == len(cols) == frames
+    assert all(ops[j][1] == 2 for j in rows) and all(ops[j][1] == 1 for j in cols)
+    ptr = lambda t: t.data_ptr()
+    for k, (r, c) in enumerate(zip(rows, cols)):
+        s = ptr(scratches[k % depth])
+        assert ops[r][2] == (ptr(h0), ptr(h0nc), ptr(omega), ptr(scal), ptr(tw), s, cascades, n,
+                             k, plans[0].lines, plans[0].pitch, plans[0].join_pitch, 2)
+        assert ops[c][2] == (s, ptr(foam if k == 0 else foam_out), ptr(scal), ptr(tw),
+                             ptr(disp[:, k]), ptr(normal[:, k]), ptr(foam_out), cascades, n,
+                             fused_step.DTYPE_CODES[dtype], frames * 3 * n * n,
+                             frames * 4 * n * n, plans[1].lines, plans[1].pitch,
+                             plans[1].join_pitch, 1)
+        assert r in reach[c] and (k == 0 or cols[k - 1] in reach[c])
+        assert all(cols[j] in reach[r] for j in range(k) if j % depth == k % depth)
+        assert 0 in reach[r]
+    assert set(rows) <= reach[-1]
+
+
+def test_row_stream_is_one_of_its_own_a_thread_and_device(monkeypatch):
+    """The row passes' stream comes from the kernel library, once for each
+    thread and device: the same thread gets the same stream back, another
+    thread a stream of its own."""
+    made = []
+
+    class Lib:
+        @staticmethod
+        def fused_step_stream(out):
+            made.append(len(made) + 1)
+            out._obj.value = made[-1]
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "ExternalStream",
+                        lambda handle, device: (handle, device.index))
+    monkeypatch.setattr(fused_step, "_row_streams", threading.local())
+    dev0, dev1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    mine = [fused_step._row_stream(Lib, d) for d in (dev0, dev1, dev0)]
+    theirs = []
+    worker = threading.Thread(target=lambda: theirs.append(fused_step._row_stream(Lib, dev0)))
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive()
+    assert mine == [(1, 0), (2, 1), (1, 0)] and theirs == [(3, 0)]
 
 
 def test_import_builds_nothing():

@@ -23,7 +23,7 @@ import torch
 
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.viewport import FramePipeline, SceneRenderer, SpraySession
-from godotoceanwaves_tpu_torch.ops import fused_step
+from godotoceanwaves_tpu_torch.ops import fft_plan, fused_step
 from godotoceanwaves_tpu_torch.parallel import sharding
 from godotoceanwaves_tpu_torch.utils import MapStreamer, graphs, observability, profiling
 
@@ -244,6 +244,28 @@ def test_launch_deltas_count_only_while_on(monkeypatch):
     assert observability.snapshot()["counters"] == {"launches.fused_step": 5}
 
 
+def test_multi_frame_launch_counts_each_pass_of_both_streams(monkeypatch):
+    """The multi-frame launch's row passes (on their own stream) and column
+    passes count as `launches.fused_step`, 2 a frame."""
+    class Lib:
+        fused_step_rows = fused_step_cols = staticmethod(lambda *args: 0)
+
+    class Stream:
+        cuda_stream = 0
+        wait_event = staticmethod(lambda event: None)
+
+    monkeypatch.setattr(torch.cuda, "Event", lambda: types.SimpleNamespace(
+        record=lambda stream: None))
+    z = lambda *shape: torch.zeros(shape)
+    n, c, k = 16, 2, 5
+    with observability.tracing():
+        fused_step._launch_frames(
+            Lib, Stream, Stream, z(c, 2, n, n), z(c, 2, n, n), z(c, n, n), z(c, n, n),
+            z(c, 1, 8), z(n // 2, 2), [z(c, n, n, 8)] * 3, z(c, k, 3, n, n), z(c, k, 4, n, n),
+            z(c, n, n), (fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)), torch.float32)
+    assert observability.snapshot()["counters"] == {"launches.fused_step": 2 * k}
+
+
 def test_the_ring_keeps_the_last_spans(monkeypatch):
     monkeypatch.setattr(observability, "RING", 8)
     observability.reset()
@@ -376,3 +398,33 @@ def test_the_frame_loop_counts_frames_waits_and_kernels_on_the_card(card):
     assert {("kernel.fused_step", "ocean.step"), ("graph.spray_step", "spray.advance"),
             ("graph.render_spray", "render.frame")} <= {(r.name, r.parent)
                                                          for r in observability.spans()}
+
+
+@pytest.mark.cuda
+def test_the_multi_frame_launch_counts_its_launches_eager_and_replayed(card):
+    """A 48-frame `step_frames` call at 64^2: one `kernel.fused_step` span
+    around the launch, both streams' passes inside it; `launches.fused_step`
+    96 a call, eager and as a graph replay's tally."""
+    from godotoceanwaves_tpu_torch.models.ocean import step_frames
+    ocean = T.Ocean(map_size=64, device=card, updates_per_second=0)
+
+    def frames48(state, params):
+        return step_frames(ocean.config, state, params, 0.02, 48)
+
+    args = (ocean.state, ocean.params)
+    graphed = graphs.graphed(frames48)
+    for _ in range(2):
+        graphed(*args)                             # the eager first call and the capture
+    torch.cuda.synchronize()
+    with observability.tracing():
+        frames48(*args)
+        torch.cuda.synchronize()
+        eager = observability.snapshot()
+        observability.reset()
+        graphed(*args)
+        torch.cuda.synchronize()
+        replay = observability.snapshot()
+    assert eager["spans"]["kernel.fused_step"]["count"] == 1
+    assert eager["counters"]["launches.fused_step"] == 96
+    assert replay["counters"]["launches.fused_step"] == 96
+    assert "kernel.fused_step" not in replay["spans"]
