@@ -58,7 +58,7 @@ import torch
 from godotoceanwaves_tpu_torch import SimConfig, default_cascades, init_state
 from godotoceanwaves_tpu_torch.models.cascade import CascadeParams, dual_wind_swell_cascades
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, multi_step, step
-from godotoceanwaves_tpu_torch.ops import fused_step, march, strip_step, tap
+from godotoceanwaves_tpu_torch.ops import fan, fused_step, march, strip_step, tap
 from godotoceanwaves_tpu_torch.utils import graphs
 
 K = 48         # frames a multi_step call
@@ -339,7 +339,7 @@ def bench_render(device="cuda", map_size: int = 1024, width: int = 640, height: 
         def frame():
             carry[0] = program(carry[0])
 
-        before = (tap.LAUNCHES, march.LAUNCHES)
+        before = (tap.LAUNCHES, march.LAUNCHES, fan.LAUNCHES)
         for _ in range(warmup):
             frame()
         carry[0].item()
@@ -356,6 +356,7 @@ def bench_render(device="cuda", map_size: int = 1024, width: int = 640, height: 
         rendered = warmup + blocks * frames
         check_launches(on_card, tap, before[0], rendered, f"render {name} (K5)")
         check_launches(on_card, march, before[1], 0, f"render {name} (K6)")
+        check_launches(on_card, fan, before[2], rendered, f"render {name} (fan select)")
         out[name], out[f"host_{name}"] = best, best_host
     return out
 

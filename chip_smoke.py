@@ -157,6 +157,15 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     twice, bit-equal, K1 2, K5 1 and the splat chain 1 a tick, ms a frame; phase 13's render
     legs as one graphed program a frame (the render and its sum) against
     the eager frame, chained, in turns.
+23. The fan march's bracket select (`ops/fan.py`, `csrc/fan.cu`; `--fan`
+    runs phases 1 and 23 only) on the arguments of one interactive-tier
+    frame of real maps (3 x 1024^2 bf16) at 1280x720 and 640x360: the
+    kernel's tsel, found, t_lo and t_hi against the plain chain's, bit for
+    bit; each timed in CUDA events (3 blocks of calls a turn, kernel, plain,
+    plain, kernel: the median block) and its device ms a call
+    (torch.profiler, medians of 3 blocks), beside the bound of the
+    compares this frame's walks make and of the worst case (every pixel
+    over the whole table).
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -301,6 +310,8 @@ GRAPH_EQUAL_FRAMES = 3       # frames a size held bit-equal to eager, with and w
 GRAPH_SPRAY_STEPS = 8        # spray advances each side of a restore
 GRAPH_FIELD = (88.0, 96, 88)  # the ANSI field's (extent, cols, rows): LiveViewer's defaults
 SPLAT_CALLS, SPLAT_REPEATS = 20, 3      # the splat leg's profiled blocks of calls
+FAN_SIZES = ((1280, 720), (640, 360))   # phase 23: the frame cell's size and the web viewer's
+FAN_CALLS, FAN_BLOCKS = 20, 3           # phase 23: CUDA-event blocks of back-to-back calls
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -352,10 +363,10 @@ def card_line() -> str:
 
 
 def launch_counts():
-    from godotoceanwaves_tpu_torch.ops import (fused_step, march, planes_fft, rows_fft, splat,
-                                               strip_step, tap)
+    from godotoceanwaves_tpu_torch.ops import (fan, fused_step, march, planes_fft, rows_fft,
+                                               splat, strip_step, tap)
     return {"K1": fused_step, "K2": planes_fft, "K3": rows_fft, "K4": strip_step, "K5": tap,
-            "K6": march, "splat": splat}
+            "K6": march, "splat": splat, "fan": fan}
 
 
 def only(**launched) -> dict:
@@ -1130,8 +1141,8 @@ def phase_render_path(torch, dev, ocean) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"[12] Ocean.update() + the three render legs -> launches {counts}")
-    check(counts == only(K1=2, K5=3),
-          f"expected 2 K1, one K5 per frame and no other, counted {counts}")
+    check(counts == only(K1=2, K5=3, fan=3),
+          f"expected 2 K1, one K5 and one fan select per frame and no other, counted {counts}")
     small = next(iter(RENDER_LEGS))
     reset_counts()
     pal = render(geometry, maps, scales, march_impl="pallas", **RENDER_LEGS[small])
@@ -1793,9 +1804,9 @@ def phase_scene(torch, T, dev) -> dict:
     log(f"[18] scene loop: {SCENE['warmup']} warm-up updates, then {n} frames of update + "
         f"spray advance ({SCENE['particles']} particles) + {width}x{height} render through "
         f"FramePipeline -> launches {counts}")
-    check(counts == only(K1=2 * n, K5=n, splat=n),
-          f"expected {2 * n} K1 (2 an update), {n} K5 and {n} splat chains (1 a frame), "
-          f"counted {counts}")
+    check(counts == only(K1=2 * n, K5=n, splat=n, fan=n),
+          f"expected {2 * n} K1 (2 an update), {n} K5, {n} splat chains and {n} fan selects "
+          f"(1 a frame), counted {counts}")
     check(len(frames) == n and all(f.shape == (height, width, 3) and f.dtype == np.uint8
                                    for f in frames), "the pipeline lost or reshaped a frame")
     vis = torch.stack(visible).cpu().numpy()
@@ -1890,9 +1901,9 @@ def phase_scene(torch, T, dev) -> dict:
         f"(>= {BATCH_EQUAL}); launches {bcounts}")
     check(int(diff.max()) <= TOL_BATCH_STEP and equal >= BATCH_EQUAL,
           "batched frames disagree with the sequential loop")
-    check(bcounts == only(K1=2 * total, K5=total, splat=total),
+    check(bcounts == only(K1=2 * total, K5=total, splat=total, fan=total),
           f"expected {2 * total} K1 (a row and a column pass a frame, from one multi-frame "
-          f"call a batch), {total} K5 and {total} splat chains")
+          f"call a batch), {total} K5, {total} splat chains and {total} fan selects")
     out.update(batched_max_step=int(diff.max()), batched_equal_share=equal,
                batched_launches=bcounts)
     del seq_o, seq_s, bat_o, bat_s, ocean_r, spray_r
@@ -2748,7 +2759,7 @@ def graph_equal_frames(torch, graphs, ocean, spray, r, cam) -> dict:
             torch.cuda.synchronize()
             g_counts = graph_counts(before)
             out["equal"] &= torch.equal(got, eager)
-            want = only(K5=1, splat=int(spray_attrs is not None))
+            want = only(K5=1, splat=int(spray_attrs is not None), fan=1)
             check(e_counts == g_counts == want,
                   f"launches a frame: eager {e_counts}, graphed {g_counts}; expected {want}")
             out["launches_eager"], out["launches_graphed"] = e_counts, g_counts
@@ -2982,7 +2993,8 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
         f"ms a frame (CUDA events): graphed {times['graphed']:.3f}, eager {times['eager']:.3f}; "
         f"capture {fn.program.capture_seconds} s; card {card}")
     check(batched_equal, "the graphed K-frame step differs from the eager one")
-    check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k, splat=2 * k),
+    check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k, splat=2 * k,
+                                                       fan=2 * k),
           f"K-frame step launches: graphed {counts['graphed']}, eager {counts['eager']}")
     out["batched"] = dict(bit_equal=batched_equal, launches=counts["graphed"],
                           ms_frame_graphed=times["graphed"], ms_frame_eager=times["eager"],
@@ -3017,6 +3029,106 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
             f"{[round(v, 3) for v in res['graphed']['ms_all']]}]; sum bit-equal {equal}; "
             f"capture {program.capture_seconds} s; card {card}")
         del program
+    return out
+
+
+def fan_args(torch, geometry, maps, scales, width: int, height: int) -> tuple:
+    """The arguments of the fan select in one frame at bench.py's render
+    settings and pose (the frame cell's tier, camera height and pitch)."""
+    from godotoceanwaves_tpu_torch.ops import fan
+    calls, real = [], fan.fan_bracket
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+    fan.fan_bracket = spy
+    try:
+        render(geometry, maps, scales, width=width, height=height)
+    finally:
+        fan.fan_bracket = real
+    check(len(calls) == 1, f"{width}x{height}: {len(calls)} fan selects in a frame, not 1")
+    return calls[0]
+
+
+def fan_work(torch, args, tsel) -> dict:
+    """What one select needs: its inputs read once and its outputs (found,
+    t_lo, t_hi) written once; the compares this frame's walks make (from the
+    window's first tau to the crossing or the window's end, each 5 fp32
+    operations and a compare) and the worst case (every pixel over all J);
+    the least time of each (HBM_TBPS, FP32_TFLOPS)."""
+    hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, _ = args
+    px = s.numel()
+    moved = nbytes(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable) + px * (1 + 4 + 4)
+    first = torch.searchsorted(tau, t0 * dxz, right=True)          # first tau > tau0
+    past = torch.searchsorted(tau, t1 * dxz, right=True)           # first tau > tau1
+    found = torch.isfinite(tsel)
+    hit = torch.searchsorted(tau, torch.where(found, tsel, 0.0))   # the crossing's index
+    walked = torch.where(found, hit + 1, past) - first
+    compares = int(torch.where(marchable, walked.clamp_min(0), 0).sum())
+    worst = px * tau.numel()
+    least, by = bound(moved, 6.0 * compares)
+    worst_least, worst_by = bound(moved, 6.0 * worst)
+    return dict(pixels=px, found=int(found.sum()), marchable=int(marchable.sum()),
+                compares=compares, compares_worst=worst, bytes=moved, bound_ms=least,
+                bound_by=by, bound_worst_ms=worst_least, bound_worst_by=worst_by)
+
+
+def event_blocks(torch, call) -> list:
+    """CUDA events around FAN_BLOCKS blocks of FAN_CALLS back-to-back calls:
+    ms a call each block (host and device together: the slower sets it)."""
+    call()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(FAN_BLOCKS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FAN_CALLS):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / FAN_CALLS)
+    return out
+
+
+def phase_fan(torch, dev, maps, scales, card: str) -> dict:
+    """Phase 23: the fan select's kernel against its plain chain."""
+    from godotoceanwaves_tpu_torch.models import geometry
+    from godotoceanwaves_tpu_torch.ops import fan
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    out = {}
+    for width, height in FAN_SIZES:
+        tag = f"{width}x{height}"
+        args = fan_args(torch, geometry, maps, scales, width, height)
+        kernel = lambda: fan.fan_bracket(*args)
+        plain = lambda: fan.fan_bracket_plain(*args)
+        got = fan.fan_bracket(*args, with_tsel=True)
+        want = fan.fan_bracket_plain(*args, with_tsel=True)
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+        equal = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+        check(equal, f"{tag}: the fan kernel differs from the plain chain")
+        work = fan_work(torch, args, want[3])
+        runs = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            runs[name] += event_blocks(torch, kernel if name == "kernel" else plain)
+        k_blocks, p_blocks = runs["kernel"], runs["plain"]
+        leg = dict(bit_equal=equal, g=args[5].shape[0] // args[2].shape[0],
+                   call_ms=median(k_blocks), call_ms_all=k_blocks,
+                   plain_ms=median(p_blocks), plain_ms_all=p_blocks,
+                   device_ms=device_ms_a_call(torch, kernel, "fan_kernel"),
+                   call_device_ms=device_ms_a_call(torch, kernel),
+                   plain_device_ms=device_ms_a_call(torch, plain), **work)
+        out[tag] = leg
+        log(f"[23] fan select {tag} (g = {leg['g']}, J = {args[1].numel()}): kernel vs plain "
+            f"chain bit-equal {equal}; {leg['found']} of {leg['marchable']} marchable of "
+            f"{leg['pixels']} pixels found; events ms a call (medians of {len(k_blocks)} "
+            f"blocks of {FAN_CALLS}): kernel call {leg['call_ms']:.4f}, plain chain "
+            f"{leg['plain_ms']:.4f}; device ms a call (torch.profiler): the kernel "
+            f"{leg['device_ms']:.4f}, the call's every operation {leg['call_device_ms']:.4f}, "
+            f"the plain chain {leg['plain_device_ms']:.4f}; {leg['compares']} compares "
+            f"({leg['compares_worst']} worst), {leg['bytes'] / 1e6:.2f} MB: bound "
+            f"{leg['bound_ms']:.4f} ms ({leg['bound_by']}), "
+            f"{leg['bound_ms'] / leg['device_ms']:.1%} of it; worst-case bound "
+            f"{leg['bound_worst_ms']:.4f} ({leg['bound_worst_by']}); card {card}")
     return out
 
 
@@ -3074,9 +3186,17 @@ def main(argv: list) -> int:
         log(json.dumps({"graphs": phase_graphs(torch, T, dev, card)}))
         log(card_line())
         return 0
+    if argv == ["--fan"]:
+        # phase 23 only: the fan select's kernel against its plain chain
+        ocean = T.Ocean(map_size=RENDER_MAP, map_dtype="bfloat16", updates_per_second=0,
+                        device=dev)
+        maps0 = ocean.update(1 / 60)
+        log(json.dumps({"fan": phase_fan(torch, dev, maps0, ocean.params.map_scales(), card)}))
+        log(card_line())
+        return 0
     if argv:
         print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost | --bench | "
-              "--graphs]", file=sys.stderr)
+              "--graphs | --fan]", file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -3092,6 +3212,7 @@ def main(argv: list) -> int:
     march_res = phase_march_vs_plain(torch, dev, maps0, ocean.params.map_scales())
     path = phase_render_path(torch, dev, ocean)
     phase_render_timing(torch, dev, path["maps"], path["scales"], card)
+    fan_line = {"fan": phase_fan(torch, dev, path["maps"], path["scales"], card)}
     del ocean, maps0, path["maps"]
     torch.cuda.empty_cache()
     rows_errs = phase_rows_vs_plain(torch, rf, fft, dev)
@@ -3133,6 +3254,7 @@ def main(argv: list) -> int:
     log(json.dumps(multihost_line))
     log(json.dumps(bench_line))
     log(json.dumps(graphs_line))
+    log(json.dumps(fan_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

@@ -31,6 +31,7 @@ import torch
 
 from . import shading
 from .cascade import require_device
+from ..ops import fan
 from ..utils import graphs
 from ..utils.clipmap import _axis_coords
 
@@ -402,29 +403,13 @@ def _fan_select(sample_h, cam, d, t0, t1, marchable,
     # the profile: the two nonzero hat weights across phi, in full fp32
     # (near-grazing crossings are height-sensitive)
     i0 = torch.clamp_max(ag.long(), phi_res - 2)
-    w0 = torch.clamp_min(1.0 - torch.abs(ag - i0.float()), 0.0)[..., None]
-    w1 = torch.clamp_min(1.0 - torch.abs(ag - (i0 + 1).float()), 0.0)[..., None]
-    prof = w0 * hfan[i0] + w1 * hfan[i0 + 1]                # (H/g, W, J)
-
-    shape = (hgt // g, g, wid, 1)
-    tau0 = (t0 * dxz).reshape(shape)
-    tau1 = (t1 * dxz).reshape(shape)
-    sy = s.reshape(shape)
-    z = sy * tau                                             # (H/g, g, W, J)
-    z.add_(cam[1])
-    cand = z < prof[:, None]
-    del z
-    cand &= tau > tau0
-    cand &= tau <= tau1
-    cand &= marchable.reshape(shape)
-    tsel = torch.where(cand, tau, math.inf).amin(dim=-1).reshape(hgt, wid)
-    del cand
-    found = torch.isfinite(tsel) & marchable
+    w0 = torch.clamp_min(1.0 - torch.abs(ag - i0.float()), 0.0)
+    w1 = torch.clamp_min(1.0 - torch.abs(ag - (i0 + 1).float()), 0.0)
     ratio = float(np.exp(-np.log(far / tau_near) / (tau_res - 1)))
-    tsel = torch.where(found, tsel, 1.0)     # keep inf out of the algebra
-    t_hi = torch.where(found, tsel / dxz, t1)
-    t_lo = torch.where(found, torch.maximum(t0, t_hi * ratio), t0)
-    return found, t_lo, t_hi
+    # the first crossing along each pixel's profile: one kernel on the card,
+    # the broadcast chain over (H/g, g, W, J) on the CPU
+    bracket = fan.fan_bracket if d.device.type == "cuda" else fan.fan_bracket_plain
+    return bracket(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio)
 
 
 def camera_rays(width: int, height: int, pitch_deg, yaw_deg, fov_deg,

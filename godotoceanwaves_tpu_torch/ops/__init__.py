@@ -13,6 +13,7 @@ Stage map (reference file -> module):
   the launch plans and twiddle tables of all four -> fft_plan (csrc/stockham.cuh)
   the render's LOD gradient taps -> tap (csrc/tap.cu)
   the render's heightfield march (march_impl="pallas") -> march (csrc/march.cu)
+  the render's fan march bracket select (march_impl="fan", the default) -> fan (csrc/fan.cu)
 """
 from . import (fft, fft_plan, fused_step, grid, initial_state, march, modulate, planes_fft,
                rng, rows_fft, spectra, strip_step, tap, unpack)

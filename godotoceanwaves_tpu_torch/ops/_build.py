@@ -29,9 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per-source flags. The render kernels round interpolation weights to bf16,
 # so a contracted multiply-add that moves a weight by an ulp can flip its
-# rounding: they build without contraction.
+# rounding, and the fan select must round as the plain chain's separate
+# launches do: they build without contraction.
 SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",),
-                "splat.cu": ("-fmad=false",)}
+                "splat.cu": ("-fmad=false",), "fan.cu": ("-fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -67,6 +68,10 @@ _SIGNATURES = {
     #             recs, rects, tiles, lists, capacity, out, stream)
     "splat_spray": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I,
                     _F, _F, _P, _P, _P, _P, _LL, _P, _P),
+    # fan_bracket(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam_y, ratio, phi, taus, g,
+    #             h, w, tsel, found, t_lo, t_hi, stream)
+    "fan_bracket": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P),
 }
 
 

@@ -15,7 +15,8 @@ the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
 torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
 <= 2e-3 max abs (both round the composite's operands to bf16), and the splat
 kernel vs the plain route on the card <= 1e-4 max abs (the same products,
-summed in another order). The browser
+summed in another order); the fan march's bracket select bit-equal to its
+plain chain. The browser
 viewer serves frames from the card over localhost as standard-library PNGs.
 The captured frame programs (utils/graphs.py) replay bit-equal to the same
 programs run eagerly inside `graphs.disabled()`.
@@ -34,10 +35,10 @@ import torch
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
 from godotoceanwaves_tpu_torch.models import geometry, shading
-from godotoceanwaves_tpu_torch.models.viewport import (FramePipeline, SceneRenderer, SpraySession,
-                                                       make_batched_step)
+from godotoceanwaves_tpu_torch.models.viewport import (RENDER_TIERS, FramePipeline, SceneRenderer,
+                                                       SpraySession, make_batched_step)
 from godotoceanwaves_tpu_torch import parallel
-from godotoceanwaves_tpu_torch.ops import (fft, fused_step, march, planes_fft, rows_fft,
+from godotoceanwaves_tpu_torch.ops import (fan, fft, fused_step, march, planes_fft, rows_fft,
                                            splat, strip_step, tap)
 from godotoceanwaves_tpu_torch.utils import graphs
 
@@ -441,31 +442,33 @@ def test_march_kernel_raises_on_what_it_does_not_take(card):
 
 
 def test_render_launches_the_kernels_and_makes_no_host_sync(card):
-    """The default render on the card goes through K5 once per frame and no
-    K6; march_impl="pallas" launches K6. A warm frame makes no host sync;
-    the kernel-route frame matches the plain-route frame."""
+    """The default render on the card goes through K5 and the fan kernel
+    once per frame and no K6; march_impl="pallas" launches K6 and no fan
+    kernel. A warm frame makes no host sync; the kernel-route frame matches
+    the plain-route frame."""
     ocean = T.Ocean(map_size=128, map_dtype="bfloat16", updates_per_second=0, device=card)
     maps = ocean.update(1 / 60)
     scales = ocean.params.map_scales()
     kw = dict(width=160, height=96, march_steps=32, bisect_steps=6, shade_res=2,
               bracket_res=128, invert_res=256, environment=True)
     geometry.render_ocean_geometry(maps, scales, **kw)            # warm the caches
-    before = (tap.LAUNCHES, march.LAUNCHES)
+    before = (tap.LAUNCHES, march.LAUNCHES, fan.LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
         img = geometry.render_ocean_geometry(maps, scales, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert (tap.LAUNCHES - before[0], march.LAUNCHES - before[1]) == (1, 0)
+    assert (tap.LAUNCHES - before[0], march.LAUNCHES - before[1],
+            fan.LAUNCHES - before[2]) == (1, 0, 1)
     assert img.shape == (96, 160, 3) and bool(img.isfinite().all())
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
     plain = geometry.render_ocean_geometry(maps, scales, tap_impl="einsum", **kw)
     assert float((img - plain).abs().mean()) < 1e-3
-    before = march.LAUNCHES
+    before = (march.LAUNCHES, fan.LAUNCHES)
     pal = geometry.render_ocean_geometry(maps, scales, march_impl="pallas", **kw)
     torch.cuda.synchronize()
-    assert march.LAUNCHES == before + 1
+    assert (march.LAUNCHES - before[0], fan.LAUNCHES - before[1]) == (1, 0)
     assert bool(pal.isfinite().all())
 
 
@@ -712,6 +715,144 @@ def test_splat_kernel_turns_the_frame_nan_as_the_plain_route_does(card):
     assert bool(want.isnan().all()) and bool(got.isnan().all())
 
 
+# --- the fan march's bracket select (ops/fan.py) against its plain chain ----
+
+# renders whose fan selects the kernel is held to: the frame cell's size and
+# the web viewer's, a band, the inner frame of render_scale=2 (960x540, g = 6),
+# a camera under the crests and a pose looking up at an all-sky frame
+FAN_RENDERS = {
+    "1280x720": dict(width=1280, height=720),
+    "640x360": dict(width=640, height=360),
+    "band 240+240 of 720": dict(width=1280, height=720, rows=(240, 240)),
+    "1920x1080 render_scale=2": dict(width=1920, height=1080, render_scale=2),
+    "under a crest": dict(width=640, height=360, camera_pos=(3.0, 0.2, -2.0), pitch_deg=4.0),
+    "all sky": dict(width=640, height=360, pitch_deg=60.0),
+}
+
+
+@pytest.fixture(scope="module")
+def fan_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0,
+                    device=torch.device("cuda", 0))
+    for _ in range(10):
+        maps = ocean.update(1 / 30)
+    return maps, ocean.params.map_scales()
+
+
+def fan_calls(monkeypatch, render) -> list:
+    """The arguments of every `fan.fan_bracket` call that `render()` makes."""
+    calls, real = [], fan.fan_bracket
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(fan, "fan_bracket", spy)
+    render()
+    monkeypatch.setattr(fan, "fan_bracket", real)
+    return calls
+
+
+def fan_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def assert_fan_routes_equal(args) -> tuple:
+    """The kernel's (found, t_lo, t_hi, tsel) against the plain chain's on the
+    same card tensors, bit for bit; returns the kernel's."""
+    before = fan.LAUNCHES
+    got = fan.fan_bracket(*args, with_tsel=True)
+    torch.cuda.synchronize()
+    assert fan.LAUNCHES - before == 1
+    want = fan.fan_bracket_plain(*args, with_tsel=True)
+    for name, a, b in zip(("found", "t_lo", "t_hi", "tsel"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(fan_bits(a), fan_bits(b)), name
+    return got
+
+
+@pytest.mark.parametrize("case", list(FAN_RENDERS))
+def test_fan_kernel_matches_the_plain_chain_on_real_frames(card, fan_scene, monkeypatch, case):
+    """Each render's fan select through the kernel equals the plain chain
+    on the same inputs bit for bit: tsel, found, t_lo and t_hi."""
+    maps, scales = fan_scene
+    kw = dict(RENDER_TIERS["interactive"], environment=True, **FAN_RENDERS[case])
+    calls = fan_calls(monkeypatch,
+                      lambda: geometry.render_ocean_geometry(maps, scales, **kw))
+    assert len(calls) == 1
+    args = calls[0]
+    found, _, _, tsel = assert_fan_routes_equal(args)
+    marchable = args[9]
+    g = args[5].shape[0] // args[2].shape[0]
+    assert g == {"band 240+240 of 720": 8, "1920x1080 render_scale=2": 6, "1280x720": 8}.get(
+        case, 4)
+    if case == "all sky":
+        assert not bool(marchable.any()) and not bool(found.any())
+    else:
+        assert bool(found.any())
+    if case in ("1280x720", "640x360", "under a crest"):
+        assert bool((marchable & ~found).any())       # rays that leave the window unmet
+    assert bool(torch.isinf(tsel[~found]).all())
+
+
+def test_fan_kernel_where_no_tau_qualifies(card, fan_scene, monkeypatch):
+    """Windows that hold no tau (a point window, and windows past the far
+    end): nothing found, the windows returned as they came, as the chain."""
+    maps, scales = fan_scene
+    kw = dict(RENDER_TIERS["interactive"], environment=True, width=640, height=360)
+    args = list(fan_calls(monkeypatch,
+                          lambda: geometry.render_ocean_geometry(maps, scales, **kw))[0])
+    t0 = args[6]
+    for t0_new, t1_new in ((t0, t0.clone()), (t0 + 2e4, t0 + 3e4)):
+        args[6], args[7] = t0_new, t1_new
+        found, t_lo, t_hi, _ = assert_fan_routes_equal(tuple(args))
+        assert not bool(found.any())
+        assert torch.equal(t_lo, t0_new) and torch.equal(t_hi, t1_new)
+
+
+@pytest.mark.parametrize("case", ["random g=1", "random g=3", "random g=4", "lower", "upper",
+                                  "rounding"])
+def test_fan_kernel_matches_the_plain_chain_on_planted_cases(card, case):
+    """tests/test_torch_fan.py's inputs on the card: NaN heights and slopes,
+    NaN, empty and out-of-table windows, unmarchable pixels, and the exact
+    ties at tau0, at tau1 and where rounding once would move the crossing."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import test_torch_fan as cpu
+    args = (cpu.fan_case(3, g=int(case[-1])) if case.startswith("random")
+            else cpu.tie_case(case))
+    dev_args = tuple(a.to(card) if isinstance(a, torch.Tensor) else a for a in args)
+    got = assert_fan_routes_equal(dev_args)
+    twin = cpu.kernel_twin(*args)
+    for a, b in zip(got, (twin[1], twin[2], twin[3], twin[0])):
+        assert torch.equal(fan_bits(a.cpu()), fan_bits(torch.from_numpy(b)))
+
+
+def test_fan_wrapper_raises_on_what_it_does_not_take(card, fan_scene, monkeypatch):
+    """CPU tensors, a tensor on another device than the rest, wrong shapes
+    and wrong dtypes raise before any launch."""
+    maps, scales = fan_scene
+    kw = dict(RENDER_TIERS["interactive"], width=320, height=180)
+    args = fan_calls(monkeypatch, lambda: geometry.render_ocean_geometry(maps, scales, **kw))[0]
+    before = fan.LAUNCHES
+    with pytest.raises(ValueError, match="runs on a CUDA device, got cpu"):
+        fan.fan_bracket(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    bad = list(args)
+    bad[5] = bad[5].cpu()
+    with pytest.raises(ValueError, match="s is on cpu"):
+        fan.fan_bracket(*bad)
+    for i, change, exc, match in ((2, lambda t: t[:, :-1], ValueError, "i0 must be"),
+                                  (7, lambda t: t[:-1], ValueError, "t1 must be"),
+                                  (0, lambda t: t.half(), TypeError, "hfan must be float32"),
+                                  (2, lambda t: t.int(), TypeError, "i0 must be int64"),
+                                  (9, lambda t: t.float(), TypeError, "marchable must be bool")):
+        bad = list(args)
+        bad[i] = change(bad[i])
+        with pytest.raises(exc, match=match):
+            fan.fan_bracket(*bad)
+    assert fan.LAUNCHES == before
+
+
 def test_frame_pipeline_on_card_returns_each_frame_once_in_order(card):
     """Frames rendered on the card come back through pinned buffers in
     order, each once, while later frames are queued; a returned array is
@@ -898,18 +1039,19 @@ def test_graphed_render_is_bit_equal_to_eager(card, case):
     frames = []
     for wc, fc, pos, pitch, yaw, fov in poses + poses:
         with graphs.disabled():
-            counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES)
+            counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES, fan.LAUNCHES)
             eager = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
             torch.cuda.synchronize()
             eager_counts = (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
-                            splat.LAUNCHES - counts[2])
-        counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES)
+                            splat.LAUNCHES - counts[2], fan.LAUNCHES - counts[3])
+        counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES, fan.LAUNCHES)
         img = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
         torch.cuda.synchronize()
         assert (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
-                splat.LAUNCHES - counts[2]) == eager_counts
+                splat.LAUNCHES - counts[2], fan.LAUNCHES - counts[3]) == eager_counts
         assert eager_counts == (1, 1 if case == "march_pallas" else 0,
-                                1 if case == "render_spray" else 0)
+                                1 if case == "render_spray" else 0,
+                                0 if case == "march_pallas" else 1)
         assert torch.equal(img, eager)
         frames.append(img)
     assert r.programs[case.replace("march_pallas", "render")].num_graphs == 1

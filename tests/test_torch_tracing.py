@@ -361,8 +361,8 @@ def test_a_steady_render_replay_counts_one_replay_and_its_copies(card):
     parents = {(r.name, r.parent) for r in observability.spans()}
     assert {("graph.render", "render.frame"), ("graph.copy_in", "graph.render"),
             ("graph.launch", "graph.render"), ("graph.copy_out", "graph.render")} <= parents
-    assert snap["counters"]["launches.tap"] == 1
-    assert not any(k.startswith("launches.") and k != "launches.tap" for k in snap["counters"])
+    assert {k: v for k, v in snap["counters"].items() if k.startswith("launches.")} == {
+        "launches.tap": 1, "launches.fan": 1}
 
 
 @pytest.mark.cuda
@@ -394,7 +394,7 @@ def test_the_frame_loop_counts_frames_waits_and_kernels_on_the_card(card):
     assert spans["graph.launch"]["count"] == 8 and "graph.capture" not in spans
     assert spans["kernel.fused_step"]["count"] == 4
     assert {k: v for k, v in counters.items() if k.startswith("launches.")} == {
-        "launches.fused_step": 8, "launches.tap": 4, "launches.splat": 4}
+        "launches.fused_step": 8, "launches.tap": 4, "launches.splat": 4, "launches.fan": 4}
     assert {("kernel.fused_step", "ocean.step"), ("graph.spray_step", "spray.advance"),
             ("graph.render_spray", "render.frame")} <= {(r.name, r.parent)
                                                          for r in observability.spans()}
