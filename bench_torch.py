@@ -58,7 +58,8 @@ import torch
 from godotoceanwaves_tpu_torch import SimConfig, default_cascades, init_state
 from godotoceanwaves_tpu_torch.models.cascade import CascadeParams, dual_wind_swell_cascades
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates, multi_step, step
-from godotoceanwaves_tpu_torch.ops import fan, fused_step, march, strip_step, tap
+from godotoceanwaves_tpu_torch.ops import fused_step
+from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
 from godotoceanwaves_tpu_torch.utils import graphs
 
 K = 48         # frames a multi_step call
@@ -128,12 +129,12 @@ def percentiles(times: list) -> dict:
             "min": t[0], "max": t[-1]}
 
 
-def check_launches(on_card: bool, module, before: int, expected: int, what: str) -> None:
-    """On the card, `module`'s kernel launched `expected` times since `before`.
+def check_launches(on_card: bool, op: str, before: int, expected: int, what: str) -> None:
+    """On the card, `op`'s kernels launched `expected` times since `before`.
     On the CPU the wrappers run their plain versions and count nothing."""
-    if on_card and module.LAUNCHES - before != expected:
-        raise RuntimeError(f"{what}: expected {expected} launches of {module.__name__}, "
-                           f"counted {module.LAUNCHES - before}")
+    if on_card and LAUNCHES[op] - before != expected:
+        raise RuntimeError(f"{what}: expected {expected} launches of {op}, "
+                           f"counted {LAUNCHES[op] - before}")
 
 
 def four_cascades(device="cuda") -> CascadeParams:
@@ -167,14 +168,14 @@ def bench_config4(device="cuda", map_size: int = 1024, k: int = K, frames: int =
 
     times, host_times, value = [], [], 0.0
     for _ in range(reps):
-        before = fused_step.LAUNCHES
+        before = LAUNCHES["fused_step"]
         with Window(device) as w:
             for _ in range(frames // k):
                 state, maps = multi_step(config, state, params, dt, k)
             total = checksum(state, maps)
             w.mark()
             value = total.item()
-        check_launches(on_card, fused_step, before, 2 * frames, "config 4 block")
+        check_launches(on_card, "fused_step", before, 2 * frames, "config 4 block")
         times.append(w.ms / frames)
         host_times.append(w.host_ms / frames)
     if not np.isfinite(value):
@@ -218,9 +219,9 @@ def bench_rms(device="cuda", map_size: int = 512) -> dict:
     cfg = SimConfig(map_size=n, map_dtype="float32")
     params = default_cascades(device=device)
     state = init_state(cfg, params)
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     _, maps = step(cfg, state, params, dt)
-    check_launches(device.type == "cuda", fused_step, before, 2, "--rms step")
+    check_launches(device.type == "cuda", "fused_step", before, 2, "--rms step")
     got_d = maps.displacement[0].cpu().numpy().transpose(1, 2, 0)
     got_n = maps.normal[0].cpu().numpy().transpose(1, 2, 0)
 
@@ -264,14 +265,14 @@ def bench_config5(device="cuda", map_size: int = 2048, frames: int = 48,
     state, maps = step(config, state, params, dt)
     checksum(state, maps).item()
 
-    before = strip_step.LAUNCHES
+    before = LAUNCHES["strip_step"]
     with Window(device) as w:
         for _ in range(frames):
             state, maps = step(config, state, params, dt)
         total = checksum(state, maps)
         w.mark()
         value = total.item()
-    check_launches(on_card, strip_step, before, 2 * frames, "config 5 steps")
+    check_launches(on_card, "strip_step", before, 2 * frames, "config 5 steps")
     if not np.isfinite(value):
         raise RuntimeError(f"config 5 checksum is not finite: {value}")
 
@@ -294,13 +295,14 @@ def bench_config5(device="cuda", map_size: int = 2048, frames: int = 48,
         streamer.close()
         return n_stream / seconds, nbytes
 
-    before = strip_step.LAUNCHES
+    before = LAUNCHES["strip_step"]
     stream_fps, bytes_frame = stream_rate(step_once)
     step_preview = lambda: preview_maps(step_once())
     m0 = step_preview()                       # the decimation chain, outside the window
     m0.displacement[:, :, 0, :].float().sum().item()
     preview_fps, pv_bytes = stream_rate(step_preview)
-    check_launches(on_card, strip_step, before, 2 * (2 * (1 + n_stream) + 1), "config 5 streams")
+    check_launches(on_card, "strip_step", before, 2 * (2 * (1 + n_stream) + 1),
+                   "config 5 streams")
     return {"ms_frame": w.ms / frames, "host_ms_frame": w.host_ms / frames,
             "stream_fps": stream_fps, "fft": config.step_tier(),
             "stream_bytes_frame": bytes_frame,
@@ -339,7 +341,7 @@ def bench_render(device="cuda", map_size: int = 1024, width: int = 640, height: 
         def frame():
             carry[0] = program(carry[0])
 
-        before = (tap.LAUNCHES, march.LAUNCHES, fan.LAUNCHES)
+        before = (LAUNCHES["tap"], LAUNCHES["march"], LAUNCHES["fan"])
         for _ in range(warmup):
             frame()
         carry[0].item()
@@ -354,9 +356,9 @@ def bench_render(device="cuda", map_size: int = 1024, width: int = 640, height: 
         if not np.isfinite(value):
             raise RuntimeError(f"render {name}: frame sum is not finite: {value}")
         rendered = warmup + blocks * frames
-        check_launches(on_card, tap, before[0], rendered, f"render {name} (K5)")
-        check_launches(on_card, march, before[1], 0, f"render {name} (K6)")
-        check_launches(on_card, fan, before[2], rendered, f"render {name} (fan select)")
+        check_launches(on_card, "tap", before[0], rendered, f"render {name} (K5)")
+        check_launches(on_card, "march", before[1], 0, f"render {name} (K6)")
+        check_launches(on_card, "fan", before[2], rendered, f"render {name} (fan select)")
         out[name], out[f"host_{name}"] = best, best_host
     return out
 

@@ -362,11 +362,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def launch_counts():
-    from godotoceanwaves_tpu_torch.ops import (fan, fused_step, march, planes_fft, rows_fft,
-                                               splat, strip_step, tap)
-    return {"K1": fused_step, "K2": planes_fft, "K3": rows_fft, "K4": strip_step, "K5": tap,
-            "K6": march, "splat": splat, "fan": fan}
+def launch_counts() -> dict:
+    """The report's name of each op whose launches `_build.LAUNCHES` counts."""
+    return {"K1": "fused_step", "K2": "planes_fft", "K3": "rows_fft", "K4": "strip_step",
+            "K5": "tap", "K6": "march", "splat": "splat", "fan": "fan"}
+
+
+def launches(op: str) -> int:
+    """The launches of `op`'s kernels since the last `reset_counts`."""
+    from godotoceanwaves_tpu_torch.ops import _build
+    return _build.LAUNCHES[op]
 
 
 def only(**launched) -> dict:
@@ -399,12 +404,12 @@ def step_bound(args, outs, cascades: int, n: int) -> tuple[float, str]:
 
 
 def reset_counts() -> None:
-    for module in launch_counts().values():
-        module.LAUNCHES = 0
+    from godotoceanwaves_tpu_torch.ops import _build
+    _build.LAUNCHES.clear()
 
 
 def read_counts() -> dict:
-    return {k: module.LAUNCHES for k, module in launch_counts().items()}
+    return {k: launches(op) for k, op in launch_counts().items()}
 
 
 def phase_toolchain(torch, build) -> str:
@@ -490,17 +495,19 @@ def phase_kernel_vs_plain(torch, T, fs, dev) -> dict:
         dtypes = [torch.float32, torch.bfloat16] + ([torch.float16] if n == 128 else [])
         for md in dtypes:
             two_byte = md != torch.float32
-            before = fs.LAUNCHES
+            before = launches("fused_step")
             got = fs.fused_cascade_step(*args, single, map_dtype=md)
             torch.cuda.synchronize()
-            check(fs.LAUNCHES == before + 2, "fused_cascade_step did not launch the kernels")
+            check(launches("fused_step") == before + 2,
+                  "fused_cascade_step did not launch the kernels")
             ref = fs.fused_cascade_step_reference(*args, single, map_dtype=md)
             errs[(n, md, 1)] = compare_maps(f"[2] N={n} {md} step", got, ref, two_byte)
 
-            before = fs.LAUNCHES
+            before = launches("fused_step")
             got = fs.fused_cascade_multi_step(*args, multi, num_frames=3, map_dtype=md)
             torch.cuda.synchronize()
-            check(fs.LAUNCHES == before + 6, "fused_cascade_multi_step did not launch 3 frames")
+            check(launches("fused_step") == before + 6,
+                  "fused_cascade_multi_step did not launch 3 frames")
             ref = fs.fused_cascade_multi_step_reference(*args, multi, num_frames=3, map_dtype=md)
             check(tuple(got[0].shape) == (3, 3, 3, n, n), f"multi-step shape {tuple(got[0].shape)}")
             for k in range(3):
@@ -527,9 +534,9 @@ def phase_oracle(torch, T, fs, dev) -> float:
     cfg = T.SimConfig(map_size=n, map_dtype="float32")
     params = T.default_cascades(device=dev)
     state = T.init_state(cfg, params)
-    before = fs.LAUNCHES
+    before = launches("fused_step")
     _, maps = T.step(cfg, state, params, dt)
-    check(fs.LAUNCHES == before + 2, "step() did not go through the kernel")
+    check(launches("fused_step") == before + 2, "step() did not go through the kernel")
     got_d = host(maps.displacement[0]).transpose(1, 2, 0)
     got_n = host(maps.normal[0]).transpose(1, 2, 0)
 
@@ -777,10 +784,11 @@ def phase_strip_vs_plain(torch, T, ss, fs, dev) -> dict:
         args = (st.h0, st.h0nc, st.omega, st.foam, scal)
         for md in dtypes:
             two_byte = md != torch.float32
-            before = ss.LAUNCHES
+            before = launches("strip_step")
             got = ss.strip_cascade_step(*args, map_dtype=md)
             torch.cuda.synchronize()
-            check(ss.LAUNCHES == before + 2, "strip_cascade_step did not launch the kernels")
+            check(launches("strip_step") == before + 2,
+                  "strip_cascade_step did not launch the kernels")
             check(got[0].dtype == md and tuple(got[0].shape) == (cascades, 3, n, n),
                   f"strip maps {got[0].dtype} {tuple(got[0].shape)}")
             ref = ss.strip_cascade_step_reference(*args, map_dtype=md)
@@ -791,10 +799,11 @@ def phase_strip_vs_plain(torch, T, ss, fs, dev) -> dict:
                 continue
             cfg = T.SimConfig(map_size=n, map_dtype=str(md).split(".")[-1])
             check(cfg.step_tier() == "strip", f"N={n} does not route to the strip tier")
-            before = ss.LAUNCHES
+            before = launches("strip_step")
             new_st, maps = multi_step(cfg, st, params, dt, 3)
             torch.cuda.synchronize()
-            check(ss.LAUNCHES == before + 6, "multi_step(3) did not launch K4 three times")
+            check(launches("strip_step") == before + 6,
+                  "multi_step(3) did not launch K4 three times")
             ref = strip_plain_frames(torch, ss, fs, st, params, dt, 3, md)
             errs[(n, md, 3)] = compare_maps(f"[6] N={n} C={cascades} {md} multi_step(3)",
                                             (maps.displacement, maps.normal, new_st.foam), ref,
@@ -810,10 +819,11 @@ def phase_planes_vs_plain(torch, pf, fft, dev) -> dict:
     for n in PLANES_SIZES:
         x = torch.randn((PLANES_L, 2, n, n), generator=gen, device=dev)
         for fold in (False, True):
-            before = pf.LAUNCHES
+            before = launches("planes_fft")
             got = pf.ifft2_packed_planes(x, fold_sign=fold)
             torch.cuda.synchronize()
-            check(pf.LAUNCHES == before + 2, "ifft2_packed_planes did not launch the kernels")
+            check(launches("planes_fft") == before + 2,
+                  "ifft2_packed_planes did not launch the kernels")
             ref = fft.ifft2_packed_planes(x, fold_sign=fold)
             e = rel_rms(got, ref)
             errs[(n, fold)] = max_abs(got, ref)
@@ -1061,10 +1071,10 @@ def phase_tap_vs_plain(torch, T, dev, maps, scales) -> dict:
     from godotoceanwaves_tpu_torch.models import geometry, shading
     from godotoceanwaves_tpu_torch.ops import tap
     args = lod_random_case(torch, T, shading, dev)
-    before = tap.LAUNCHES
+    before = launches("tap")
     got = tap.gradient_lod_tap(*args)
     torch.cuda.synchronize()
-    check(tap.LAUNCHES == before + 1, "gradient_lod_tap did not launch the kernel")
+    check(launches("tap") == before + 1, "gradient_lod_tap did not launch the kernel")
     want = tap.gradient_lod_tap_reference(*args)
     e_rand = max_abs(got, want)
     check(bool((got[6] == 0).all()), "a skipped band was tapped")
@@ -1072,10 +1082,10 @@ def phase_tap_vs_plain(torch, T, dev, maps, scales) -> dict:
         f" max abs {e_rand:.3e} (<= {TOL_TAP:g}); output mean |.| {float(want.abs().mean()):.3f}")
     check(e_rand <= TOL_TAP, "K5 disagrees with its plain version (random case)")
     kw = dict(width=640, height=360, _debug_stage="grad")
-    before = tap.LAUNCHES
+    before = launches("tap")
     got = render(geometry, maps, scales, **kw)
     torch.cuda.synchronize()
-    check(tap.LAUNCHES == before + 1, "the render's gradient stage did not launch K5 once")
+    check(launches("tap") == before + 1, "the render's gradient stage did not launch K5 once")
     want = render(geometry, maps, scales, tap_impl="einsum", **kw)
     e_real = max_abs(got, want)
     log(f"[10] K5 real 640x360 frame gradient (_debug_stage='grad'), kernel route vs "
@@ -1112,10 +1122,10 @@ def phase_march_vs_plain(torch, dev, maps, scales) -> dict:
     out = {"agree": 1.0, "max_abs": 0.0, "args": {}}
     for w, h in MARCH_RAYS:
         args = march_case(torch, geometry, maps, scales, dev, width=w, height=h)
-        before = march.LAUNCHES
+        before = launches("march")
         found, lo, hi = march.march_heightfield(*args, **MARCH_RUN)
         torch.cuda.synchronize()
-        check(march.LAUNCHES == before + 1, "march_heightfield did not launch the kernel")
+        check(launches("march") == before + 1, "march_heightfield did not launch the kernel")
         wf, wlo, whi = march.march_heightfield_reference(*args, **MARCH_RUN)
         agree = float((found == wf).float().mean())
         both = found & wf
@@ -1478,10 +1488,10 @@ def phase_rows_vs_plain(torch, rf, fft, dev) -> dict:
     for l, r, n in ROWS_SHAPES:
         x = torch.randn((l, 2, r, n), generator=gen, device=dev)
         for fold in (False, True):
-            before = rf.LAUNCHES
+            before = launches("rows_fft")
             got = rf.idft_rows_planes(x, fold_sign=fold)
             torch.cuda.synchronize()
-            check(rf.LAUNCHES == before + 1, "idft_rows_planes did not launch the kernel")
+            check(launches("rows_fft") == before + 1, "idft_rows_planes did not launch the kernel")
             ref = fft.idft_rows_planes(x, fold_sign=fold)
             e = rel_rms(got, ref)
             errs[(l, r, n, fold)] = max_abs(got, ref)
@@ -1550,7 +1560,6 @@ def phase_sharded_config5(torch, T, par, dev) -> dict:
     """BASELINE config 5 at 8 patches on a (4, 2) mesh of the card."""
     from godotoceanwaves_tpu_torch.models import geometry
     from godotoceanwaves_tpu_torch.models.ocean import OceanMaps
-    from godotoceanwaves_tpu_torch.ops import strip_step
     n = STRIP_SIZE
     params = par.multipatch_params(T.models.dual_wind_swell_cascades(device=dev), SHARD_PATCHES)
     cfg = T.SimConfig(map_size=n, map_dtype="bfloat16")
@@ -1594,10 +1603,10 @@ def phase_sharded_config5(torch, T, par, dev) -> dict:
     del host, foam
 
     st0, p0 = patch0(par, state, dev), params.map(lambda x: x[0])
-    before = strip_step.LAUNCHES
+    before = launches("strip_step")
     ref_state, ref = T.step(cfg32, st0, p0, 0.02)
     torch.cuda.synchronize()
-    check(strip_step.LAUNCHES == before + 2, "the single-patch step did not run K4")
+    check(launches("strip_step") == before + 2, "the single-patch step did not run K4")
     state32, maps32 = par.make_multichip_step(mesh, cfg32)(state, params, 0.02)
     got = patch0(par, maps32, dev)
     err = compare_fp32("[15] config 5 patch 0, one fp32 frame vs step() (K4)",

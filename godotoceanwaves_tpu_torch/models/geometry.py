@@ -408,8 +408,7 @@ def _fan_select(sample_h, cam, d, t0, t1, marchable,
     ratio = float(np.exp(-np.log(far / tau_near) / (tau_res - 1)))
     # the first crossing along each pixel's profile: one kernel on the card,
     # the broadcast chain over (H/g, g, W, J) on the CPU
-    bracket = fan.fan_bracket if d.device.type == "cuda" else fan.fan_bracket_plain
-    return bracket(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio)
+    return fan.fan_bracket(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio)
 
 
 def camera_rays(width: int, height: int, pitch_deg, yaw_deg, fov_deg,

@@ -193,6 +193,23 @@ def step(config: SimConfig, state: OceanState, params: CascadeParams, dt
     return state.replace(foam=foam, time=t_new), OceanMaps(displacement=disp, normal=normal)
 
 
+def _step_loop(config: SimConfig, state: OceanState, params: CascadeParams, dt,
+               num_steps: int, stack_dim: int | None) -> tuple[OceanState, OceanMaps | None]:
+    """`num_steps` calls of `step`: the final state and the maps stacked on
+    `stack_dim`, or the last frame's maps (None after 0 steps) where it is None."""
+    frames = []
+    for _ in range(num_steps):
+        state, maps = step(config, state, params, dt)
+        if stack_dim is None:
+            frames.clear()                  # only the last frame's maps are kept
+        frames.append(maps)
+    if stack_dim is None:
+        return state, frames[-1] if frames else None
+    return state, OceanMaps(
+        displacement=torch.stack([m.displacement for m in frames], dim=stack_dim),
+        normal=torch.stack([m.normal for m in frames], dim=stack_dim))
+
+
 def step_frames(config: SimConfig, state: OceanState, params: CascadeParams, dt,
                 num_frames: int) -> tuple[OceanState, OceanMaps]:
     """`num_frames` consecutive frames; maps carry a per-frame axis (C, K, ...).
@@ -211,13 +228,7 @@ def step_frames(config: SimConfig, state: OceanState, params: CascadeParams, dt,
             num_frames=num_frames, map_dtype=config.resolved_map_dtype())
         new_state = state.replace(foam=foam, time=state.time + dt * num_frames)
         return new_state, OceanMaps(displacement=disp, normal=normal)
-    frames = []
-    for _ in range(num_frames):
-        state, maps = step(config, state, params, dt)
-        frames.append(maps)
-    return state, OceanMaps(
-        displacement=torch.stack([m.displacement for m in frames], dim=1),
-        normal=torch.stack([m.normal for m in frames], dim=1))
+    return _step_loop(config, state, params, dt, num_frames, stack_dim=1)
 
 
 def multi_step(config: SimConfig, state: OceanState, params: CascadeParams, dt,
@@ -227,10 +238,7 @@ def multi_step(config: SimConfig, state: OceanState, params: CascadeParams, dt,
         state, stacked = step_frames(config, state, params, dt, num_steps)
         return state, OceanMaps(displacement=stacked.displacement[:, -1],
                                 normal=stacked.normal[:, -1])
-    maps = None
-    for _ in range(num_steps):
-        state, maps = step(config, state, params, dt)
-    return state, maps
+    return _step_loop(config, state, params, dt, num_steps, stack_dim=None)
 
 
 def refresh_cascades(config: SimConfig, state: OceanState, params: CascadeParams,
@@ -276,13 +284,7 @@ def simulate(config: SimConfig, state: OceanState, params: CascadeParams, dt,
              num_steps: int) -> tuple[OceanState, OceanMaps]:
     """Time-batched rollout (foam is a recurrence, so a loop); maps stacked
     on a leading time axis (T, C, ...)."""
-    frames = []
-    for _ in range(num_steps):
-        state, maps = step(config, state, params, dt)
-        frames.append(maps)
-    return state, OceanMaps(
-        displacement=torch.stack([m.displacement for m in frames]),
-        normal=torch.stack([m.normal for m in frames]))
+    return _step_loop(config, state, params, dt, num_steps, stack_dim=0)
 
 
 def _zero_maps(config: SimConfig, c: int, device) -> OceanMaps:

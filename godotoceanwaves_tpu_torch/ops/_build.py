@@ -8,9 +8,19 @@ with ctypes. The library name carries a hash of the sources and headers, so
 an edited kernel is rebuilt. One lock guards the first load, so two threads
 that launch kernels at the same time (a viewer's frame loop and its
 reconfiguration worker) run one build between them.
+
+Package code launches a kernel through `launch` alone: it calls the
+library's symbol, raises on the CUDA error it returns, and counts one launch
+of the op (`fused_step`, `strip_step`, `planes_fft`, `rows_fft`, `tap`,
+`march`, `splat`, `fan`) in `LAUNCHES` and in the trace counter
+`launches.<op>`. A launch that a thread records into a CUDA graph
+(`recording`, set by `utils/graphs.py` around a capture) is not made: it
+goes to the capture's tally, and each replay counts that tally (`made`).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +30,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from ..utils.observability import count
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -142,3 +154,41 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+# Kernel launches made, by op, since the process started or the last
+# `LAUNCHES.clear()`; a launch captured in a CUDA graph counts at each replay.
+LAUNCHES: collections.Counter = collections.Counter()
+_recording = threading.local()   # .tally: the Counter of the graph this thread captures
+
+
+def launch(op: str, symbol: str, *args) -> None:
+    """Call the library's `symbol` with `args`, raise if it returns a CUDA
+    error, and count one launch of `op`."""
+    rc = getattr(load(), symbol)(*args)
+    if rc:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
+    tally = getattr(_recording, "tally", None)
+    if tally is None:
+        LAUNCHES[op] += 1
+        count("launches." + op)
+    else:
+        tally[op] += 1
+
+
+def made(tally) -> None:
+    """Count the launches of `tally` ({op: n}) as made: a graph's replay."""
+    for op, n in tally.items():
+        LAUNCHES[op] += n
+        count("launches." + op, n)
+
+
+@contextlib.contextmanager
+def recording(tally: collections.Counter):
+    """This thread's launches in the block go to `tally` and count nowhere
+    else: a graph capture records its launches without making them."""
+    _recording.tally = tally
+    try:
+        yield
+    finally:
+        _recording.tally = None

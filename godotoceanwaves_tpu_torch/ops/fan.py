@@ -12,19 +12,16 @@ the chain: `tau` strictly increasing makes the chain's `amin` the first
 qualifying index, and every product and sum is rounded as the chain rounds
 it. The renderer's prologue (`dxz`, `s`, the `atan2`, the fan table, the
 row-group mean and the hat index and weights) stays PyTorch and feeds both
-routes. A call allocates its outputs with `torch.empty`, reads `cam_y` on the
-device and makes no host sync, so a render that runs it stays one captured
-graph.
+routes; `fan_bracket` takes the kernel on a CUDA tensor and the chain on a
+CPU tensor. A kernel call allocates its outputs with `torch.empty`, reads
+`cam_y` on the device and makes no host sync, so a render that runs it stays
+one captured graph.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-
-# Kernel launches since the last reset (a launch captured in a CUDA graph
-# counts at each replay: utils/graphs.py).
-LAUNCHES = 0
 
 
 def fan_tsel_plain(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam) -> torch.Tensor:
@@ -73,7 +70,7 @@ def fan_bracket_plain(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, rat
 
 
 def check_inputs(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam) -> None:
-    """Raises on what the kernel does not take: shapes, dtypes, devices."""
+    """Raises on what neither route takes: shapes, dtypes, devices."""
     if hfan.ndim != 2 or hfan.shape[0] < 2 or hfan.shape[1] < 1:
         raise ValueError(f"hfan must be (phi, J) with phi >= 2, got {tuple(hfan.shape)}")
     phi, taus = hfan.shape
@@ -101,25 +98,20 @@ def check_inputs(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam) -> None:
         raise TypeError(f"i0 must be int64, got {i0.dtype}")
     if marchable.dtype != torch.bool:
         raise TypeError(f"marchable must be bool, got {marchable.dtype}")
-    if hfan.device.type != "cuda":
-        raise ValueError(f"the fan kernel runs on a CUDA device, got {hfan.device}; "
-                         "CPU tensors take fan_bracket_plain")
     named.update(i0=i0, marchable=marchable)
     for name, t in named.items():
         if t.device != hfan.device:
             raise ValueError(f"{name} is on {t.device}, hfan on {hfan.device}")
-    if hgt * wid >= 2 ** 31 or -(-hgt // 8) > 65535:
-        raise NotImplementedError(f"the fan kernel takes < 2^31 pixels and <= 524,280 rows, "
-                                  f"got {hgt} x {wid}")
 
 
 def _launch(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio, with_tsel):
-    global LAUNCHES
-    from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
-    dev = hfan.device
     hgt, wid = s.shape
+    if hgt * wid >= 2 ** 31 or -(-hgt // 8) > 65535:
+        raise NotImplementedError(f"the fan kernel takes < 2^31 pixels and <= 524,280 rows, "
+                                  f"got {hgt} x {wid}")
+    from . import _build
+    from ..utils import observability
+    dev = hfan.device
     ins = [t.contiguous() for t in (hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable)]
     cam_y = cam[1]                      # a 0-d view: its pointer is cam's second element
     tsel = torch.empty((hgt, wid), dtype=torch.float32, device=dev) if with_tsel else None
@@ -127,30 +119,32 @@ def _launch(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio, with_t
     t_lo = torch.empty((hgt, wid), dtype=torch.float32, device=dev)
     t_hi = torch.empty((hgt, wid), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), observability.span("kernel.fan"):
-        rc = lib.fan_bracket(*(t.data_ptr() for t in ins), cam_y.data_ptr(),
-                             ratio, hfan.shape[0], hfan.shape[1],
-                             hgt // i0.shape[0], hgt, wid,
-                             None if tsel is None else tsel.data_ptr(), found.data_ptr(),
-                             t_lo.data_ptr(), t_hi.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"fan_bracket launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        _build.launch("fan", "fan_bracket", *(t.data_ptr() for t in ins), cam_y.data_ptr(),
+                      ratio, hfan.shape[0], hfan.shape[1], hgt // i0.shape[0], hgt, wid,
+                      None if tsel is None else tsel.data_ptr(), found.data_ptr(),
+                      t_lo.data_ptr(), t_hi.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
     out = (found, t_lo, t_hi)
     return (*out, tsel) if with_tsel else out
 
 
 def fan_bracket(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio: float,
                 *, with_tsel: bool = False):
-    """The fan march's bracket select on the card: (found bool, t_lo, t_hi),
-    each (H, W), and the first-crossing tau (H, W) last with `with_tsel`.
+    """The fan march's bracket select: (found bool, t_lo, t_hi), each (H, W),
+    and the first-crossing tau (H, W) last with `with_tsel`.
 
     hfan: (phi, J) fp32 fan table (heading x log-distance); tau: (J,) fp32,
     strictly increasing; i0 (H/g, W) int64, w0 and w1 (H/g, W) fp32: each row
     group's hat index and weights across phi; s, t0, t1, dxz: (H, W) fp32
     slope, window and horizontal length of each ray; marchable (H, W) bool;
     cam (3,) fp32, read on the device; ratio: tau's step down, a Python
-    float. Bit-equal to `fan_bracket_plain`.
+    float. A CUDA tensor launches the kernel, bit-equal to
+    `fan_bracket_plain`; a CPU tensor runs `fan_bracket_plain`.
     """
     check_inputs(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam)
-    return _launch(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio, with_tsel)
+    if hfan.device.type == "cuda":
+        return _launch(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio, with_tsel)
+    if hfan.device.type != "cpu":
+        raise ValueError(f"unsupported device {hfan.device}")
+    return fan_bracket_plain(hfan, tau, i0, w0, w1, s, t0, t1, dxz, marchable, cam, ratio,
+                             with_tsel=with_tsel)

@@ -131,18 +131,18 @@ def _check(n: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def rows_plan(n: int, threads: int = ROWS_THREADS) -> Plan:
-    """Rows a block: `threads` / (N / 16), at least one."""
+def rows_plan(n: int) -> Plan:
+    """Rows a block: ROWS_THREADS / (N / 16), at least one."""
     _check(n)
-    seqs = max(1, threads // (n // POINTS))
+    seqs = max(1, ROWS_THREADS // (n // POINTS))
     return Plan(n, seqs, _pitch(n, seqs, False))
 
 
 @functools.lru_cache(maxsize=None)
-def cols_plan(n: int, threads: int = COLS_THREADS) -> Plan:
-    """Columns a block: `threads` / (N / 16), at least one, at most N."""
+def cols_plan(n: int) -> Plan:
+    """Columns a block: COLS_THREADS / (N / 16), at least one, at most N."""
     _check(n)
-    seqs = min(n, max(1, threads // (n // POINTS)))
+    seqs = min(n, max(1, COLS_THREADS // (n // POINTS)))
     return Plan(n, seqs, _pitch(n, seqs, True), column_major=True)
 
 
@@ -170,22 +170,22 @@ def _step_plan(n: int, threads: int, column_major: bool, split: int = 1) -> Plan
 
 
 @functools.lru_cache(maxsize=None)
-def step_rows_plan(n: int, threads: int = STEP_THREADS) -> Plan:
+def step_rows_plan(n: int) -> Plan:
     """The fused row pass: rows a block, each as 4 layer sequences,
-    `threads` / (4 N / 16) rows, at least one, at most N. The join buffer
+    STEP_THREADS / (4 N / 16) rows, at least one, at most N. The join buffer
     carries the modulated layers to the threads of their sequences and the
     transformed ones back to the texel records."""
     _check_step(n)
-    return _step_plan(n, threads, False)
+    return _step_plan(n, STEP_THREADS, False)
 
 
 @functools.lru_cache(maxsize=None)
-def step_cols_plan(n: int, threads: int = STEP_THREADS) -> Plan:
+def step_cols_plan(n: int) -> Plan:
     """The fused column pass: columns a block, each as 4 layer sequences,
-    `threads` / (4 N / 16) columns, at least one, at most N. The join buffer
+    STEP_THREADS / (4 N / 16) columns, at least one, at most N. The join buffer
     brings the 4 layers of each output texel together for the unpack."""
     _check_step(n)
-    return _step_plan(n, threads, True)
+    return _step_plan(n, STEP_THREADS, True)
 
 
 def strip_length(n: int) -> int:

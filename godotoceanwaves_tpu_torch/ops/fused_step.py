@@ -43,10 +43,6 @@ NUM_SCALARS = 8
 
 MIN_N, MAX_N = 16, 1024
 
-# Kernel launches (row and column pass each count one) since the last reset
-# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
-LAUNCHES = 0
-
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -148,22 +144,14 @@ def _row_stream(lib, device: torch.device) -> torch.cuda.ExternalStream:
     return streams[device.index]
 
 
-def _pass(lib, name, *args):
-    global LAUNCHES
-    from ..utils import graphs
-    rc = getattr(lib, name)(*args)
-    if rc:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES += graphs.counted(__name__)
-
-
-def _launch_frames(lib, main, rows_stream, h0, h0nc, omega, foam, scalars, tw, scratches,
+def _launch_frames(main, rows_stream, h0, h0nc, omega, foam, scalars, tw, scratches,
                    disp, normal, foam_out, plans, map_dtype):
     """Launch the multi-frame step by `frame_pipeline`: frame k's row pass
     (all cascades) on `rows_stream` into scratch k mod depth, its column pass
     on `main` once that row pass is done. Foam carries in place: frame 0
     reads `foam`, later frames `foam_out`. Both streams start after what
-    `main` holds, and `main` ends after both."""
+    `main` holds, and `main` ends after both. Each pass counts one launch."""
+    from ._build import launch
     (rows, cols), c, n = plans, h0.shape[0], h0.shape[-1]
     fork = torch.cuda.Event()
     fork.record(main)
@@ -173,17 +161,17 @@ def _launch_frames(lib, main, rows_stream, h0, h0nc, omega, foam, scalars, tw, s
         s = scratches[slot].data_ptr()
         if wait is not None:
             rows_stream.wait_event(freed.pop(wait))
-        _pass(lib, "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-              scalars.data_ptr(), tw.data_ptr(), s, c, n, k, rows.lines, rows.pitch,
-              rows.join_pitch, rows_stream.cuda_stream)
+        launch("fused_step", "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(),
+               omega.data_ptr(), scalars.data_ptr(), tw.data_ptr(), s, c, n, k, rows.lines,
+               rows.pitch, rows.join_pitch, rows_stream.cuda_stream)
         ready = torch.cuda.Event()
         ready.record(rows_stream)
         main.wait_event(ready)         # the last one joins rows_stream back into main
         d_k, n_k = disp[:, k], normal[:, k]
-        _pass(lib, "fused_step_cols", s, (foam if k == 0 else foam_out).data_ptr(),
-              scalars.data_ptr(), tw.data_ptr(), d_k.data_ptr(), n_k.data_ptr(),
-              foam_out.data_ptr(), c, n, DTYPE_CODES[map_dtype], d_k.stride(0), n_k.stride(0),
-              cols.lines, cols.pitch, cols.join_pitch, main.cuda_stream)
+        launch("fused_step", "fused_step_cols", s, (foam if k == 0 else foam_out).data_ptr(),
+               scalars.data_ptr(), tw.data_ptr(), d_k.data_ptr(), n_k.data_ptr(),
+               foam_out.data_ptr(), c, n, DTYPE_CODES[map_dtype], d_k.stride(0),
+               n_k.stride(0), cols.lines, cols.pitch, cols.join_pitch, main.cuda_stream)
         freed[k] = torch.cuda.Event()
         freed[k].record(main)
 
@@ -198,7 +186,6 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
             f"staged path (SimConfig.step_tier)")
     from . import _build
     from ..utils import observability
-    lib = _build.load()
     dev = h0.device
     with torch.cuda.device(dev):
         main = torch.cuda.current_stream(dev)
@@ -212,17 +199,18 @@ def _launch(h0, h0nc, omega, foam, scalars, *, num_frames: int, map_dtype, multi
         foam_out = torch.empty_like(foam)
         with observability.span("kernel.fused_step"):
             if multi:
-                _launch_frames(lib, main, _row_stream(lib, dev), h0, h0nc, omega, foam, scalars,
-                               tw, scratches, disp, normal, foam_out, plans, map_dtype)
+                _launch_frames(main, _row_stream(_build.load(), dev), h0, h0nc, omega, foam,
+                               scalars, tw, scratches, disp, normal, foam_out, plans, map_dtype)
             else:
                 s, stream = scratches[0].data_ptr(), main.cuda_stream
-                _pass(lib, "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                      scalars.data_ptr(), tw.data_ptr(), s, c, n, 0, rows.lines, rows.pitch,
-                      rows.join_pitch, stream)
-                _pass(lib, "fused_step_cols", s, foam.data_ptr(), scalars.data_ptr(),
-                      tw.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c,
-                      n, DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0), cols.lines,
-                      cols.pitch, cols.join_pitch, stream)
+                _build.launch("fused_step", "fused_step_rows", h0.data_ptr(), h0nc.data_ptr(),
+                              omega.data_ptr(), scalars.data_ptr(), tw.data_ptr(), s, c, n, 0,
+                              rows.lines, rows.pitch, rows.join_pitch, stream)
+                _build.launch("fused_step", "fused_step_cols", s, foam.data_ptr(),
+                              scalars.data_ptr(), tw.data_ptr(), disp.data_ptr(),
+                              normal.data_ptr(), foam_out.data_ptr(), c, n,
+                              DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0),
+                              cols.lines, cols.pitch, cols.join_pitch, stream)
     return disp, normal, foam_out
 
 

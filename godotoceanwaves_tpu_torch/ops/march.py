@@ -31,10 +31,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Kernel launches since the last reset (a launch captured in a CUDA graph
-# counts at each replay: utils/graphs.py).
-LAUNCHES = 0
-
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
@@ -87,14 +83,12 @@ def march_reference(table16, bx, bz, dy, t0, t1, valid, ax, az, cy, *,
 
 def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_steps,
             refine_rounds):
-    global LAUNCHES
     p, g = t0.numel(), table.shape[0]
     if p >= 2 ** 31 or g * g >= 2 ** 31:
         raise NotImplementedError(f"the march kernel takes < 2^31 pixels and texels, got {p} "
                                   f"and {g * g}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = table.device
     # the table by its strides; the rest are views where contiguous, as the
     # renderer's are
@@ -105,16 +99,12 @@ def _launch(table, dirs, t0, t1, valid, cam, center_xz, origin, cell, *, march_s
     lo = torch.empty(t0.shape, dtype=torch.float32, device=dev)
     hi = torch.empty(t0.shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), observability.span("kernel.march"):
-        rc = lib.march_heightfield(
-            table.data_ptr(), int(table.dtype == torch.bfloat16), *table.stride(),
-            compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(), ok.data_ptr(),
-            c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)),
+        _build.launch(
+            "march", "march_heightfield", table.data_ptr(), int(table.dtype == torch.bfloat16),
+            *table.stride(), compact.data_ptr(), d.data_ptr(), a.data_ptr(), b.data_ptr(),
+            ok.data_ptr(), c.data_ptr(), ctr.data_ptr(), _f32(origin), _f32(1.0 / float(cell)),
             found.data_ptr(), lo.data_ptr(), hi.data_ptr(), p, g, march_steps,
-            _f32(1.0 / march_steps), refine_rounds,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"march_heightfield launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+            _f32(1.0 / march_steps), refine_rounds, torch.cuda.current_stream(dev).cuda_stream)
     return found, lo, hi
 
 

@@ -23,10 +23,6 @@ from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
-# Kernel launches (row and column pass each count one) since the last reset
-# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
-LAUNCHES = 0
-
 
 def covers(n: int) -> bool:
     """Whether the kernel takes N (a power of two in [MIN_N, MAX_N])."""
@@ -34,14 +30,12 @@ def covers(n: int) -> bool:
 
 
 def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
-    global LAUNCHES
     l, _, n, _ = x.shape
     if not covers(n):
         raise NotImplementedError(
             f"the planes CUDA IFFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -50,18 +44,12 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         mid = torch.empty_like(x)      # (L, 2, N / TILE, N, TILE) records
         out = torch.empty_like(x)
         with observability.span("kernel.planes_fft"):
-            rc = lib.rows_fft(x.data_ptr(), mid.data_ptr(), tw.data_ptr(), l, n, n, 0,
-                              rows.seqs, rows.pitch, fft_plan.TILE, stream)
-            if rc:
-                raise RuntimeError(
-                    f"planes_fft row pass (rows_fft) launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
-            rc = lib.planes_fft_cols(mid.data_ptr(), out.data_ptr(), tw.data_ptr(), l, n,
-                                     int(fold_sign), cols.seqs, cols.pitch, fft_plan.TILE,
-                                     stream)
-            if rc:
-                raise RuntimeError(f"planes_fft_cols launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
+            _build.launch("planes_fft", "rows_fft", x.data_ptr(), mid.data_ptr(),
+                          tw.data_ptr(), l, n, n, 0, rows.seqs, rows.pitch, fft_plan.TILE,
+                          stream)
+            _build.launch("planes_fft", "planes_fft_cols", mid.data_ptr(), out.data_ptr(),
+                          tw.data_ptr(), l, n, int(fold_sign), cols.seqs, cols.pitch,
+                          fft_plan.TILE, stream)
     return out
 
 

@@ -22,10 +22,6 @@ from . import fft, fft_plan
 
 MIN_N, MAX_N = 16, 8192
 
-# Kernel launches since the last reset (a launch captured in a CUDA graph
-# counts at each replay: utils/graphs.py).
-LAUNCHES = 0
-
 
 def covers(n: int) -> bool:
     """Whether the kernel takes rows of length N (a power of two in [MIN_N, MAX_N])."""
@@ -33,14 +29,12 @@ def covers(n: int) -> bool:
 
 
 def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
-    global LAUNCHES
     l, _, r, n = x.shape
     if not covers(n):
         raise NotImplementedError(
             f"the rows CUDA DFT covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = x.device
     with torch.cuda.device(dev):
         plan = fft_plan.rows_plan(n)
@@ -48,11 +42,8 @@ def _launch(x: torch.Tensor, fold_sign: bool) -> torch.Tensor:
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with observability.span("kernel.rows_fft"):
-            rc = lib.rows_fft(x.data_ptr(), out.data_ptr(), tw.data_ptr(), l, r, n,
-                              int(fold_sign), plan.seqs, plan.pitch, 0, stream)
-            if rc:
-                raise RuntimeError(f"rows_fft launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
+            _build.launch("rows_fft", "rows_fft", x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                          l, r, n, int(fold_sign), plan.seqs, plan.pitch, 0, stream)
     return out
 
 

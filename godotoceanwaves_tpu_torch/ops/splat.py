@@ -29,9 +29,6 @@ import ctypes
 import numpy as np
 import torch
 
-# Kernel chains launched since the last reset (a chain captured in a CUDA graph
-# counts at each replay: utils/graphs.py).
-LAUNCHES = 0
 TILE = 16               # csrc/splat.cu kTile
 WINDOW_SIGMAS = 16.0    # csrc/splat.cu kWindowSigmas: at 16 sigma the exponent is -128
 SIGMA_MAX = 2.2         # the particle's sigma clamp in shading.splat_spray (lobes: x <= 1)
@@ -101,7 +98,6 @@ def check_inputs(img, view, scales, dissolve, visible, custom_z, boost, lobes, t
 
 
 def _launch(img, view, scales, dissolve, visible, custom_z, boost, max_alpha, lobes, turns):
-    global LAUNCHES
     h, w, _ = img.shape
     x, y, z, dist, world_r, tan_half, focal = (t.contiguous() for t in view)
     p = x.shape[0]
@@ -113,8 +109,7 @@ def _launch(img, view, scales, dissolve, visible, custom_z, boost, max_alpha, lo
         raise NotImplementedError(f"the splat kernel takes < 2^30 / {TILES_AXIS ** 2} lobes and "
                                   f"<= {MAX_TILE_ROWS} tile rows, got {n} and {-(-h // TILE)}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = img.device
     img = img.contiguous()
     scales = scales.contiguous()
@@ -131,17 +126,14 @@ def _launch(img, view, scales, dissolve, visible, custom_z, boost, max_alpha, lo
     host_table = (ctypes.c_float * table.size)(*table.reshape(-1).tolist())
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev), observability.span("kernel.splat"):
-        rc = lib.splat_spray(img.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                             dist.data_ptr(), world_r.data_ptr(), scales.data_ptr(),
-                             dissolve.data_ptr(), visible.data_ptr(), ptr(custom_z), ptr(turns),
-                             tan_half.data_ptr(), focal.data_ptr(), boost.data_ptr(),
-                             host_table, table.shape[0], p, h, w, h / w, max_alpha,
-                             recs.data_ptr(), rects.data_ptr(), bins.data_ptr(),
-                             lists.data_ptr(), capacity, out.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"splat_spray launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        # the chain's launches (memset, setup, scan, scatter, gather) count as one
+        _build.launch("splat", "splat_spray", img.data_ptr(), x.data_ptr(), y.data_ptr(),
+                      z.data_ptr(), dist.data_ptr(), world_r.data_ptr(), scales.data_ptr(),
+                      dissolve.data_ptr(), visible.data_ptr(), ptr(custom_z), ptr(turns),
+                      tan_half.data_ptr(), focal.data_ptr(), boost.data_ptr(), host_table,
+                      table.shape[0], p, h, w, h / w, max_alpha, recs.data_ptr(),
+                      rects.data_ptr(), bins.data_ptr(), lists.data_ptr(), capacity,
+                      out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -29,10 +29,6 @@ from . import fft_plan, fused_step
 
 MIN_N, MAX_N = 2048, 8192
 
-# Kernel launches (row and column pass each count one) since the last reset
-# (a launch captured in a CUDA graph counts at each replay: utils/graphs.py).
-LAUNCHES = 0
-
 
 def strip_cascade_step_reference(h0, h0nc, omega, foam, scalars, *,
                                  map_dtype=torch.bfloat16):
@@ -42,14 +38,12 @@ def strip_cascade_step_reference(h0, h0nc, omega, foam, scalars, *,
 
 
 def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
-    global LAUNCHES
     c, _, n, _ = h0.shape
     if n & (n - 1) or not MIN_N <= n <= MAX_N:
         raise NotImplementedError(
             f"the strip CUDA step covers power-of-two N in [{MIN_N}, {MAX_N}], got N={n}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = h0.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -61,21 +55,15 @@ def _launch(h0, h0nc, omega, foam, scalars, map_dtype):
         normal = torch.empty((c, 4, n, n), dtype=map_dtype, device=dev)
         foam_out = torch.empty_like(foam)
         with observability.span("kernel.strip_step"):
-            rc = lib.strip_step_rows(h0.data_ptr(), h0nc.data_ptr(), omega.data_ptr(),
-                                     scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(),
-                                     scratch.data_ptr(), c, n, rows.lines, rows.pitch,
-                                     rows.join_pitch, stream)
-            if rc:
-                raise RuntimeError(f"strip_step_rows launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
-            rc = lib.strip_step_cols(
-                scratch.data_ptr(), foam.data_ptr(), scalars.data_ptr(), tw.data_ptr(),
-                twn.data_ptr(), disp.data_ptr(), normal.data_ptr(), foam_out.data_ptr(), c, n,
-                fused_step.DTYPE_CODES[map_dtype], disp.stride(0), normal.stride(0),
-                cols.lines, cols.pitch, cols.join_pitch, stream)
-            if rc:
-                raise RuntimeError(f"strip_step_cols launch failed: cudaError {rc}")
-            LAUNCHES += graphs.counted(__name__)
+            _build.launch("strip_step", "strip_step_rows", h0.data_ptr(), h0nc.data_ptr(),
+                          omega.data_ptr(), scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(),
+                          scratch.data_ptr(), c, n, rows.lines, rows.pitch, rows.join_pitch,
+                          stream)
+            _build.launch(
+                "strip_step", "strip_step_cols", scratch.data_ptr(), foam.data_ptr(),
+                scalars.data_ptr(), tw.data_ptr(), twn.data_ptr(), disp.data_ptr(),
+                normal.data_ptr(), foam_out.data_ptr(), c, n, fused_step.DTYPE_CODES[map_dtype],
+                disp.stride(0), normal.stride(0), cols.lines, cols.pitch, cols.join_pitch, stream)
     return disp, normal, foam_out
 
 

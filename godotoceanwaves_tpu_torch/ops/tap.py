@@ -30,9 +30,6 @@ import ctypes
 
 import torch
 
-# Kernel launches since the last reset (a launch captured in a CUDA graph
-# counts at each replay: utils/graphs.py).
-LAUNCHES = 0
 MAX_LEVELS = 16         # csrc/tap.cu kMaxLevels: 8192^2 down to 8^2 needs 11
 MAX_BANDS = 65535       # the grid's y extent
 
@@ -82,7 +79,6 @@ def gradient_lod_tap_reference(pyramid, map_scales, xz_bands, band_levels) -> to
 
 
 def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
-    global LAUNCHES
     b, p, _ = xz_bands.shape
     c, _, r, _ = pyramid[0].shape
     if len(pyramid) > MAX_LEVELS or b > MAX_BANDS or b * p >= 2 ** 31:
@@ -90,8 +86,7 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
                                   f"<= {MAX_BANDS} bands and < 2^31 pixels, got "
                                   f"{len(pyramid)}, {b} and {b * p}")
     from . import _build
-    from ..utils import graphs, observability
-    lib = _build.load()
+    from ..utils import observability
     dev = xz_bands.device
     levels = [lev.contiguous() for lev in pyramid]          # no copy where contiguous
     scales = map_scales.contiguous()
@@ -99,13 +94,10 @@ def _launch(pyramid, map_scales, xz_bands, band_levels) -> torch.Tensor:
     out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * len(levels))(*[lev.data_ptr() for lev in levels])
     with torch.cuda.device(dev), observability.span("kernel.tap"):
-        rc = lib.lod_tap(ptrs, len(levels), int(levels[0].dtype == torch.bfloat16),
-                         scales.data_ptr(), xz_bands.data_ptr(), *xz_bands.stride(),
-                         band_lev.data_ptr(), out.data_ptr(), b, p, c, r,
-                         torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"lod_tap launch failed: cudaError {rc}")
-        LAUNCHES += graphs.counted(__name__)
+        _build.launch("tap", "lod_tap", ptrs, len(levels),
+                      int(levels[0].dtype == torch.bfloat16), scales.data_ptr(),
+                      xz_bands.data_ptr(), *xz_bands.stride(), band_lev.data_ptr(),
+                      out.data_ptr(), b, p, c, r, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

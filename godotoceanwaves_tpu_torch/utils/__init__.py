@@ -1,8 +1,7 @@
 """Utilities: host IO, CUDA-event timing, observability (the program's spans
 and counters, `observability.span` / `count` / `tracing`), profiling, the clipmap
 mesh, map streaming, the Godot RNG, JAX-package interchange and the ANSI live
-viewer; `fft_sweep`, run as a module, times the FFT kernels' launch plans on
-the card. The JAX package's `time_chained` is `time_cuda` here."""
+viewer. The JAX package's `time_chained` is `time_cuda` here."""
 from .hostio import device_get_tree, device_put_tree
 from .timing import time_cuda
 from .observability import FrameStats, panel

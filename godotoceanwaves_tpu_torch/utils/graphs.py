@@ -24,9 +24,9 @@ copies of the arguments into the graph's input buffers.
   (state passed through), which comes back as the caller's own tensor.
 - On CPU tensors `fn` runs as it is; `disabled()` runs it eagerly on the
   card too (`jax.disable_jit()`).
-- Launch counts: a kernel wrapper adds `counted(__name__)` to its module's
-  `LAUNCHES`. A launch recorded during a capture is not made, so it counts
-  0 there and goes to the capture's tally; every replay adds the tally.
+- Launch counts (`ops/_build.py` `LAUNCHES`): a launch recorded during a
+  capture is not made, so it goes to the capture's tally
+  (`_build.recording`); every replay counts the tally (`_build.made`).
 - Cached device constants (`keep`) are held by the graph captured while
   they are read, so a cache eviction cannot free memory a replay reads.
 - Spans and counters (`utils/observability.py`): a call on the card is the
@@ -34,21 +34,21 @@ copies of the arguments into the graph's input buffers.
   `graph.copy_out` for a replay or `graph.capture`; counters
   `graph.copy_in_bytes` and `graph.copy_out_bytes` (each graph's sums,
   taken once at its capture); `HostValues.put` waiting for a pinned buffer
-  is `host_values.wait`. Every launch that `LAUNCHES` counts, made or
-  replayed, is also the counter `launches.<ops module>`.
+  is `host_values.wait`. `_build` counts every launch, made or replayed,
+  as the counter `launches.<op>` too.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
-import sys
 import threading
 import time
 
 import numpy as np
 import torch
 
+from ..ops import _build
 from .observability import count, span
 
 _state = threading.local()        # .capture: the _Capture this thread is recording
@@ -77,18 +77,6 @@ def enabled() -> bool:
 class _Capture:
     tally: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     kept: list = dataclasses.field(default_factory=list)
-
-
-def counted(module: str) -> int:
-    """What a kernel wrapper in `module` adds to its `LAUNCHES` for one launch:
-    1, or 0 while this thread captures a graph (the launch is recorded, not
-    made: the capture's tally takes it, and each replay adds it)."""
-    capture = getattr(_state, "capture", None)
-    if capture is None:
-        count(f"launches.{module.rpartition('.')[2]}")
-        return 1
-    capture.tally[module] += 1
-    return 0
 
 
 def keep(value):
@@ -142,12 +130,6 @@ class _Graph:
     kept: list            # cached constants the replay reads
     copy_in_bytes: int    # what a replay copies into `inputs`
     copy_out_bytes: int   # ... and clones out of `outputs`
-
-
-def _add_launches(tally) -> None:
-    for module, n in tally.items():
-        sys.modules[module].LAUNCHES += n
-        count(f"launches.{module.rpartition('.')[2]}", n)
 
 
 def _results(out_spec, outputs: list, inputs: list, args: list):
@@ -204,7 +186,7 @@ class Graphed:
                             buf.copy_(t)
                     with span("graph.launch"):
                         entry.graph.replay()
-                    _add_launches(entry.tally)
+                    _build.made(entry.tally)
                     count("graph.copy_in_bytes", entry.copy_in_bytes)
                     count("graph.copy_out_bytes", entry.copy_out_bytes)
                     with span("graph.copy_out"):
@@ -228,8 +210,8 @@ class Graphed:
             with _capture_lock:
                 _state.capture = capture
                 try:
-                    with torch.cuda.graph(graph, pool=self.pool.get(),
-                                          capture_error_mode="thread_local"):
+                    with _build.recording(capture.tally), torch.cuda.graph(
+                            graph, pool=self.pool.get(), capture_error_mode="thread_local"):
                         out = self.fn(*args, **kwargs)
                 finally:
                     _state.capture = None

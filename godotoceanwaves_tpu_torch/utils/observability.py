@@ -10,8 +10,8 @@ parameter readouts:
     `step.scalars`, `kernel.fused_step`, `graph.launch`, `pipeline.wait`,
     `stream.convert`, ...) and counts what a span's count does not tell
     where it happens (`graph.copy_in_bytes`, `pipeline.bytes`, and
-    `launches.<ops module>`: the kernel launches, counted where each
-    wrapper adds to its module's `LAUNCHES`).
+    `launches.<op>`: the kernel launches, counted where `ops/_build.py`
+    counts them in its `LAUNCHES`).
   * FrameStats: rolling per-update wall-clock statistics (FPS, ms percentiles)
   * panel(): a text rendering of the live state, the ImGui panel as a string.
     It shows the session's step tier (`SimConfig.step_tier()`) where the JAX

@@ -76,7 +76,7 @@ def sharded_frames(layout: str, rows: int, per_process: int, config: dict, param
     the worker ("foreign").
     """
     from godotoceanwaves_tpu_torch import SimConfig
-    from godotoceanwaves_tpu_torch.ops import rows_fft
+    from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
     from godotoceanwaves_tpu_torch.parallel import multihost, sharding
     from godotoceanwaves_tpu_torch.utils import convert
     dev = multihost.local_device()
@@ -90,7 +90,7 @@ def sharded_frames(layout: str, rows: int, per_process: int, config: dict, param
     else:
         st = sharding.make_multichip_init(mesh, cfg)(tp)
     step = sharding.make_multichip_step(mesh, cfg)
-    before = rows_fft.LAUNCHES
+    before = LAUNCHES["rows_fft"]
     out = []
     for k in range(frames):
         st, maps = step(st, tp, dt)
@@ -102,7 +102,7 @@ def sharded_frames(layout: str, rows: int, per_process: int, config: dict, param
     every = [None] * multihost.process_count()
     torch.distributed.all_gather_object(every, out[-1][:2])
     return {"frames": out, "owners": mesh.processes.tolist(), "every_rank": every,
-            "K3_launches": rows_fft.LAUNCHES - before, "foreign": foreign_modules()}
+            "K3_launches": LAUNCHES["rows_fft"] - before, "foreign": foreign_modules()}
 
 
 def _dryrun_worker(n_devices: int, device_type: str) -> dict:
@@ -111,7 +111,7 @@ def _dryrun_worker(n_devices: int, device_type: str) -> dict:
     from godotoceanwaves_tpu_torch import SimConfig, default_cascades
     from godotoceanwaves_tpu_torch.models.ocean import OceanMaps
     from godotoceanwaves_tpu_torch.models.viewport import RENDER_TIERS
-    from godotoceanwaves_tpu_torch.ops import rows_fft
+    from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
     from godotoceanwaves_tpu_torch.parallel import multihost, sharding
     procs = multihost.process_count()
     dev = multihost.local_device()
@@ -152,11 +152,11 @@ def _dryrun_worker(n_devices: int, device_type: str) -> dict:
         n = 128 * rows
         cfg = SimConfig(map_size=n)
         params = sharding.multipatch_params(default_cascades(device=dev), patches, seed=1)
-        before = rows_fft.LAUNCHES
+        before = LAUNCHES["rows_fft"]
         state = sharding.make_multichip_init(mesh, cfg)(params)
         _, maps = sharding.make_multichip_step(mesh, cfg)(state, params, 0.02)
         got = maps.gather("cpu").displacement
-        out["K3_launches"] = rows_fft.LAUNCHES - before
+        out["K3_launches"] = LAUNCHES["rows_fft"] - before
         if multihost.process_index() == 0:
             ref_dev = torch.device("cpu")
             one = sharding.build_mesh([ref_dev] * n_devices, rows=rows)

@@ -40,6 +40,7 @@ from godotoceanwaves_tpu_torch.models.viewport import (RENDER_TIERS, FramePipeli
 from godotoceanwaves_tpu_torch import parallel
 from godotoceanwaves_tpu_torch.ops import (fan, fft, fused_step, march, planes_fft, rows_fft,
                                            splat, strip_step, tap)
+from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
 from godotoceanwaves_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
@@ -86,10 +87,10 @@ def inputs(n: int, dev, multi: bool, cascades: int = 3):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_multi_step_kernel_matches_plain(card, dtype):
     args = inputs(128, card, multi=True)
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     got = fused_step.fused_cascade_multi_step(*args, num_frames=2, map_dtype=DTYPES[dtype])
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 4
+    assert LAUNCHES["fused_step"] == before + 4
     want = fused_step.fused_cascade_multi_step_reference(*args, num_frames=2,
                                                          map_dtype=DTYPES[dtype])
     assert got[0].dtype == DTYPES[dtype] and got[0].shape == (3, 2, 3, 128, 128)
@@ -105,10 +106,10 @@ def test_step_kernel_matches_plain_across_sizes(card, n, dtype):
     RMS; 2-byte maps <= 1e-3 (displacement) and <= 2e-3 (normal, RMS); foam
     <= 1e-4 RMS."""
     args = inputs(n, card, multi=False)
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     got = fused_step.fused_cascade_step(*args, map_dtype=DTYPES[dtype])
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 2
+    assert LAUNCHES["fused_step"] == before + 2
     want = fused_step.fused_cascade_step_reference(*args, map_dtype=DTYPES[dtype])
     assert got[0].dtype == DTYPES[dtype] and got[0].shape == (3, 3, n, n)
     assert_close(got, want, two_byte=dtype != "float32")
@@ -154,10 +155,10 @@ def test_pipelined_multi_frame_launch_is_bit_equal_to_the_pairs_in_turn(card, dt
     d1, n1, f1 = fused_step.fused_cascade_multi_step(*args, num_frames=1, map_dtype=mdt)
     d, nm, f = fused_step.fused_cascade_step(*args, map_dtype=mdt)
     assert torch.equal(d1[:, 0], d) and torch.equal(n1[:, 0], nm) and torch.equal(f1, f)
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     got = fused_step.fused_cascade_multi_step(*args, num_frames=6, map_dtype=mdt)
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 2 * 6
+    assert LAUNCHES["fused_step"] == before + 2 * 6
     f = foam
     for k in range(6):
         single = scal.clone()
@@ -178,14 +179,14 @@ def test_step_kernel_makes_no_host_sync(card):
     frame, and the tolerances above against the plain version."""
     args = inputs(1024, card, multi=True)
     torch.cuda.synchronize()
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = fused_step.fused_cascade_multi_step(*args, num_frames=2, map_dtype=torch.bfloat16)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 2 * 2
+    assert LAUNCHES["fused_step"] == before + 2 * 2
     want = fused_step.fused_cascade_multi_step_reference(*args, num_frames=2,
                                                          map_dtype=torch.bfloat16)
     for k in range(2):
@@ -221,10 +222,10 @@ def test_strip_kernel_matches_plain(card, n, dtype):
     """K4 (one cascade) at 2048, and at 4096 and 8192 through the split,
     within the tolerances above."""
     args = inputs(n, card, multi=False, cascades=1)
-    before = strip_step.LAUNCHES
+    before = LAUNCHES["strip_step"]
     got = strip_step.strip_cascade_step(*args, map_dtype=DTYPES[dtype])
     torch.cuda.synchronize()
-    assert strip_step.LAUNCHES == before + 2
+    assert LAUNCHES["strip_step"] == before + 2
     want = strip_step.strip_cascade_step_reference(*args, map_dtype=DTYPES[dtype])
     assert got[0].dtype == DTYPES[dtype] and got[0].shape == (1, 3, n, n)
     assert_close(got, want, two_byte=dtype != "float32")
@@ -239,10 +240,10 @@ def test_planes_kernel_matches_plain(card, n, fold_sign):
     """K2 (row pass + column pass) against torch.fft: <= 1e-4 relative RMS."""
     x = torch.from_numpy(np.random.default_rng(n).standard_normal((2, 2, n, n),
                                                                   dtype=np.float32)).to(card)
-    before = planes_fft.LAUNCHES
+    before = LAUNCHES["planes_fft"]
     got = planes_fft.ifft2_packed_planes(x, fold_sign=fold_sign)
     torch.cuda.synchronize()
-    assert planes_fft.LAUNCHES == before + 2
+    assert LAUNCHES["planes_fft"] == before + 2
     assert rel_rms(got, fft.ifft2_packed_planes(x, fold_sign=fold_sign)) <= 1e-4
 
 
@@ -276,13 +277,13 @@ def test_config5_session_runs_strip_and_staged_kernels(card):
     counts = []
     sessions = []
     for fused in ("auto", "never"):
-        before = (strip_step.LAUNCHES, planes_fft.LAUNCHES, fused_step.LAUNCHES)
+        before = (LAUNCHES["strip_step"], LAUNCHES["planes_fft"], LAUNCHES["fused_step"])
         o = T.Ocean(fused=fused, **kw)
         for _ in range(3):
             o.update(0.02)
         torch.cuda.synchronize()
         counts.append(tuple(a - b for a, b in zip(
-            (strip_step.LAUNCHES, planes_fft.LAUNCHES, fused_step.LAUNCHES), before)))
+            (LAUNCHES["strip_step"], LAUNCHES["planes_fft"], LAUNCHES["fused_step"]), before)))
         sessions.append(o)
     assert counts == [(6, 0, 0), (0, 6, 0)]
     strip, staged = sessions
@@ -313,10 +314,10 @@ def lod_case(dev, r=256, levels=4, pixels=3000, seed=0):
 @pytest.mark.parametrize("r", [256, 1024])
 def test_tap_kernel_matches_plain(card, r):
     args = lod_case(card, r=r)
-    before = tap.LAUNCHES
+    before = LAUNCHES["tap"]
     got = tap.gradient_lod_tap(*args)
     torch.cuda.synchronize()
-    assert tap.LAUNCHES == before + 1
+    assert LAUNCHES["tap"] == before + 1
     want = tap.gradient_lod_tap_reference(*args)
     assert got.shape == want.shape == (8, 3000, 3)
     assert float((got - want).abs().max()) <= 5e-5
@@ -391,10 +392,10 @@ def march_case(dev, g=256, seed=0):
 
 def test_march_kernel_matches_plain(card):
     args = march_case(card)
-    before = march.LAUNCHES
+    before = LAUNCHES["march"]
     found, lo, hi = march.march_heightfield(*args, march_steps=32, refine_rounds=2)
     torch.cuda.synchronize()
-    assert march.LAUNCHES == before + 1
+    assert LAUNCHES["march"] == before + 1
     cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
     wf, wlo, whi = march.march_heightfield(*cpu, march_steps=32, refine_rounds=2)
     found, lo, hi = found.cpu(), lo.cpu(), hi.cpu()
@@ -452,23 +453,23 @@ def test_render_launches_the_kernels_and_makes_no_host_sync(card):
     kw = dict(width=160, height=96, march_steps=32, bisect_steps=6, shade_res=2,
               bracket_res=128, invert_res=256, environment=True)
     geometry.render_ocean_geometry(maps, scales, **kw)            # warm the caches
-    before = (tap.LAUNCHES, march.LAUNCHES, fan.LAUNCHES)
+    before = (LAUNCHES["tap"], LAUNCHES["march"], LAUNCHES["fan"])
     torch.cuda.set_sync_debug_mode("error")
     try:
         img = geometry.render_ocean_geometry(maps, scales, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert (tap.LAUNCHES - before[0], march.LAUNCHES - before[1],
-            fan.LAUNCHES - before[2]) == (1, 0, 1)
+    assert (LAUNCHES["tap"] - before[0], LAUNCHES["march"] - before[1],
+            LAUNCHES["fan"] - before[2]) == (1, 0, 1)
     assert img.shape == (96, 160, 3) and bool(img.isfinite().all())
     assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0
     plain = geometry.render_ocean_geometry(maps, scales, tap_impl="einsum", **kw)
     assert float((img - plain).abs().mean()) < 1e-3
-    before = (march.LAUNCHES, fan.LAUNCHES)
+    before = (LAUNCHES["march"], LAUNCHES["fan"])
     pal = geometry.render_ocean_geometry(maps, scales, march_impl="pallas", **kw)
     torch.cuda.synchronize()
-    assert (march.LAUNCHES - before[0], fan.LAUNCHES - before[1]) == (1, 0)
+    assert (LAUNCHES["march"] - before[0], LAUNCHES["fan"] - before[1]) == (1, 0)
     assert bool(pal.isfinite().all())
 
 
@@ -482,10 +483,10 @@ def test_rows_kernel_matches_plain(card, n, l, r, fold_sign):
     block load zeros and are not stored) and a single plane."""
     x = torch.from_numpy(np.random.default_rng(n + r).standard_normal(
         (l, 2, r, n), dtype=np.float32)).to(card)
-    before = rows_fft.LAUNCHES
+    before = LAUNCHES["rows_fft"]
     got = rows_fft.idft_rows_planes(x, fold_sign=fold_sign)
     torch.cuda.synchronize()
-    assert rows_fft.LAUNCHES == before + 1
+    assert LAUNCHES["rows_fft"] == before + 1
     assert rel_rms(got, fft.idft_rows_planes(x, fold_sign=fold_sign)) <= 1e-4
 
 
@@ -496,19 +497,19 @@ def test_fft_kernels_make_no_host_sync(card, kernel, launches):
     <= 1e-4 relative RMS against torch.fft."""
     n = 2048
     shape = (16, 2, 64, n) if kernel == "rows" else (2, 2, n, n)
-    counter, call, plain = ((rows_fft, rows_fft.idft_rows_planes, fft.idft_rows_planes)
-                            if kernel == "rows" else
-                            (planes_fft, planes_fft.ifft2_packed_planes, fft.ifft2_packed_planes))
+    op, call, plain = (("rows_fft", rows_fft.idft_rows_planes, fft.idft_rows_planes)
+                       if kernel == "rows" else
+                       ("planes_fft", planes_fft.ifft2_packed_planes, fft.ifft2_packed_planes))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(shape, dtype=np.float32)).to(card)
     torch.cuda.synchronize()
-    before = counter.LAUNCHES
+    before = LAUNCHES[op]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = call(x, True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert counter.LAUNCHES == before + launches
+    assert LAUNCHES[op] == before + launches
     assert rel_rms(got, plain(x, True)) <= 1e-4
 
 
@@ -530,11 +531,12 @@ def test_sharded_step_on_one_card_matches_kernel_step(card, n, rows, cascades, m
     state = parallel.make_multichip_init(mesh, cfg)(params)
     p0 = params.map(lambda x: x[0])
     ref_state = T.init_state(cfg, p0)
-    before = (rows_fft.LAUNCHES, module.LAUNCHES)
+    op = module.__name__.rpartition(".")[2]
+    before = (LAUNCHES["rows_fft"], LAUNCHES[op])
     state, maps = parallel.make_multichip_step(mesh, cfg)(state, params, 0.02)
     ref_state, ref = T.step(cfg, ref_state, p0, 0.02)
     torch.cuda.synchronize()
-    assert (rows_fft.LAUNCHES - before[0], module.LAUNCHES - before[1]) == (2 * rows, 2)
+    assert (LAUNCHES["rows_fft"] - before[0], LAUNCHES[op] - before[1]) == (2 * rows, 2)
     got = maps.gather(card)
     assert_close((got.displacement[0], got.normal[0], state.gather(card).foam[0]),
                  (ref.displacement, ref.normal, ref_state.foam), two_byte=False)
@@ -550,10 +552,11 @@ def test_sharded_step_with_one_row_position_runs_the_kernel_tier(card, n, module
     mesh = parallel.build_mesh([card] * 2, rows=1)
     state = parallel.make_multichip_init(mesh, cfg)(params)
     refs = [T.init_state(cfg, params.map(lambda x, p=p: x[p])) for p in range(4)]
-    before = (rows_fft.LAUNCHES, module.LAUNCHES)
+    op = module.__name__.rpartition(".")[2]
+    before = (LAUNCHES["rows_fft"], LAUNCHES[op])
     state, maps = parallel.make_multichip_step(mesh, cfg)(state, params, 0.02)
     torch.cuda.synchronize()
-    assert (rows_fft.LAUNCHES - before[0], module.LAUNCHES - before[1]) == (0, 4)
+    assert (LAUNCHES["rows_fft"] - before[0], LAUNCHES[op] - before[1]) == (0, 4)
     got, got_state = maps.gather(card), state.gather(card)
     for p, ref_state in enumerate(refs):
         ref_state, ref = T.step(cfg, ref_state, params.map(lambda x: x[p]), 0.02)
@@ -653,10 +656,10 @@ def splat_particles(p: int, seed: int):
 def splat_routes(img, pos, scale, dissolve, visible, custom_z, sprite):
     """(kernel route, plain route) on the card, from the same card tensors."""
     args = (img, pos, scale, dissolve, visible)
-    before = splat.LAUNCHES
+    before = LAUNCHES["splat"]
     got = shading.splat_spray(*args, custom_z=custom_z, sprite=sprite, **SPLAT_KW)
     torch.cuda.synchronize()
-    assert splat.LAUNCHES - before == 1                  # one kernel chain a call
+    assert LAUNCHES["splat"] - before == 1                  # one kernel chain a call
     want = shading._splat_spray_plain(*args, *SPLAT_KW.values(), custom_z, sprite)
     return got, want
 
@@ -761,10 +764,10 @@ def fan_bits(x: torch.Tensor) -> torch.Tensor:
 def assert_fan_routes_equal(args) -> tuple:
     """The kernel's (found, t_lo, t_hi, tsel) against the plain chain's on the
     same card tensors, bit for bit; returns the kernel's."""
-    before = fan.LAUNCHES
+    before = LAUNCHES["fan"]
     got = fan.fan_bracket(*args, with_tsel=True)
     torch.cuda.synchronize()
-    assert fan.LAUNCHES - before == 1
+    assert LAUNCHES["fan"] - before == 1
     want = fan.fan_bracket_plain(*args, with_tsel=True)
     for name, a, b in zip(("found", "t_lo", "t_hi", "tsel"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
@@ -829,14 +832,16 @@ def test_fan_kernel_matches_the_plain_chain_on_planted_cases(card, case):
 
 
 def test_fan_wrapper_raises_on_what_it_does_not_take(card, fan_scene, monkeypatch):
-    """CPU tensors, a tensor on another device than the rest, wrong shapes
-    and wrong dtypes raise before any launch."""
+    """A tensor on another device than the rest, wrong shapes and wrong
+    dtypes raise before any launch; CPU tensors take the plain chain,
+    bit for bit, with no launch."""
     maps, scales = fan_scene
     kw = dict(RENDER_TIERS["interactive"], width=320, height=180)
     args = fan_calls(monkeypatch, lambda: geometry.render_ocean_geometry(maps, scales, **kw))[0]
-    before = fan.LAUNCHES
-    with pytest.raises(ValueError, match="runs on a CUDA device, got cpu"):
-        fan.fan_bracket(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    before = LAUNCHES["fan"]
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    for got, want in zip(fan.fan_bracket(*cpu), fan.fan_bracket_plain(*cpu)):
+        assert got.device.type == "cpu" and torch.equal(got, want)
     bad = list(args)
     bad[5] = bad[5].cpu()
     with pytest.raises(ValueError, match="s is on cpu"):
@@ -850,7 +855,7 @@ def test_fan_wrapper_raises_on_what_it_does_not_take(card, fan_scene, monkeypatc
         bad[i] = change(bad[i])
         with pytest.raises(exc, match=match):
             fan.fan_bracket(*bad)
-    assert fan.LAUNCHES == before
+    assert LAUNCHES["fan"] == before
 
 
 def test_frame_pipeline_on_card_returns_each_frame_once_in_order(card):
@@ -882,7 +887,7 @@ def test_scene_frame_with_spray_on_card(card):
     r.render(maps, scales, ocean.water_color, ocean.foam_color, cam, -12.0, 0.0,
              spray_attrs=spray.advance(maps, scales, 1 / 30))
     torch.cuda.synchronize()
-    before = tap.LAUNCHES
+    before = LAUNCHES["tap"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         maps = ocean.update(1 / 30)
@@ -892,7 +897,7 @@ def test_scene_frame_with_spray_on_card(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert tap.LAUNCHES - before == 1
+    assert LAUNCHES["tap"] - before == 1
     assert img.dtype == torch.uint8 and tuple(img.shape) == (72, 128, 3)
 
 
@@ -908,7 +913,7 @@ def test_web_viewer_serves_png_frames_from_the_card(card, monkeypatch):
     ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
     viewer = webviewer.WebViewer(ocean, fps=60.0, width=128, height=72, spray=True,
                                  spray_particles=1024)
-    k1, k5 = fused_step.LAUNCHES, tap.LAUNCHES
+    k1, k5 = LAUNCHES["fused_step"], LAUNCHES["tap"]
     port = viewer.start(port=0)
     try:
         get = lambda path: urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
@@ -925,7 +930,7 @@ def test_web_viewer_serves_png_frames_from_the_card(card, monkeypatch):
     for _, body in bodies:
         assert body[:8] == b"\x89PNG\r\n\x1a\n" and body[12:16] == b"IHDR"
         assert struct.unpack(">II", body[16:24]) == (128, 72)
-    assert fused_step.LAUNCHES > k1 and tap.LAUNCHES > k5
+    assert LAUNCHES["fused_step"] > k1 and LAUNCHES["tap"] > k5
 
 
 # --- extreme parameters through K1, K4 and K2; the session's subset paths --
@@ -944,12 +949,12 @@ EDGE_CASES = {
     "zero_whitecap": dict(whitecap=0.0, foam_amount=10.0),
     "negative_wind_dir": dict(wind_direction=-360.0),
 }
-# (map size, config, the kernel module the card's step launches)
+# (map size, config, the op whose kernels the card's step launches)
 EDGE_PATHS = {
-    "K1 bf16": (64, dict(map_dtype="bfloat16"), fused_step),
-    "K1 f16": (64, dict(map_dtype="float16"), fused_step),
-    "K4 2048 bf16": (2048, dict(map_dtype="bfloat16"), strip_step),
-    "K2 fused=never": (64, dict(fused="never"), planes_fft),
+    "K1 bf16": (64, dict(map_dtype="bfloat16"), "fused_step"),
+    "K1 f16": (64, dict(map_dtype="float16"), "fused_step"),
+    "K4 2048 bf16": (2048, dict(map_dtype="bfloat16"), "strip_step"),
+    "K2 fused=never": (64, dict(fused="never"), "planes_fft"),
 }
 
 
@@ -960,7 +965,7 @@ def test_extreme_params_through_the_kernels(card, case, path):
     case: seed (1, 2), dt 1000 then -0.1) through the kernel on the card,
     against the same steps on the CPU (the plain versions) from the same
     state: finite maps, foam in [0, 1], within the kernel-vs-plain bounds."""
-    n, cfg_kw, module = EDGE_PATHS[path]
+    n, cfg_kw, op = EDGE_PATHS[path]
     seed, dts = ((1, 2), (1000.0, -0.1)) if case.startswith("dt") else ((3, -9), (0.1,) * 3)
     p = T.models.stack_cascades([T.CascadeParams.create(spectrum_seed=seed, device="cpu",
                                                         **EDGE_CASES.get(case, {}))])
@@ -969,12 +974,12 @@ def test_extreme_params_through_the_kernels(card, case, path):
     state = cpu_state.replace(**{f: getattr(cpu_state, f).to(card)
                                  for f in ("h0", "h0nc", "omega", "foam", "time")})
     params = p.to(card)
-    before = module.LAUNCHES
+    before = LAUNCHES[op]
     for dt in dts:
         state, maps = T.step(cfg, state, params, dt)
         cpu_state, cpu_maps = T.step(cfg, cpu_state, p, dt)
     torch.cuda.synchronize()
-    assert module.LAUNCHES - before == 2 * len(dts)
+    assert LAUNCHES[op] - before == 2 * len(dts)
     d, nm = maps.displacement, maps.normal
     assert bool(d.isfinite().all()) and bool(nm.isfinite().all()), case
     assert 0.0 <= float(nm[:, 3].min()) and float(nm[:, 3].max()) <= 1.0, case
@@ -991,7 +996,7 @@ def test_session_subset_paths_on_card_match_cpu(card, stagger):
     by update."""
     sessions = [T.Ocean(map_size=64, updates_per_second=30.0, stagger=stagger, device=d)
                 for d in (card, "cpu")]
-    before = fused_step.LAUNCHES
+    before = LAUNCHES["fused_step"]
     for i, delta in enumerate([0.02, 0.05, 0.01, 0.04, 0.03, 0.02, 0.05, 0.01, 0.04]):
         for o in sessions:
             if i == 3:
@@ -1005,7 +1010,7 @@ def test_session_subset_paths_on_card_match_cpu(card, stagger):
                      (cpu.maps.displacement, cpu.maps.normal, cpu.state.foam), two_byte=False)
         assert torch.equal(gpu.state.time.cpu(), cpu.state.time)
     torch.cuda.synchronize()
-    assert fused_step.LAUNCHES > before
+    assert LAUNCHES["fused_step"] > before
 
 
 # --- the captured frame programs (utils/graphs.py) against graphs.disabled() --
@@ -1039,16 +1044,16 @@ def test_graphed_render_is_bit_equal_to_eager(card, case):
     frames = []
     for wc, fc, pos, pitch, yaw, fov in poses + poses:
         with graphs.disabled():
-            counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES, fan.LAUNCHES)
+            counts = (LAUNCHES["tap"], LAUNCHES["march"], LAUNCHES["splat"], LAUNCHES["fan"])
             eager = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
             torch.cuda.synchronize()
-            eager_counts = (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
-                            splat.LAUNCHES - counts[2], fan.LAUNCHES - counts[3])
-        counts = (tap.LAUNCHES, march.LAUNCHES, splat.LAUNCHES, fan.LAUNCHES)
+            eager_counts = (LAUNCHES["tap"] - counts[0], LAUNCHES["march"] - counts[1],
+                            LAUNCHES["splat"] - counts[2], LAUNCHES["fan"] - counts[3])
+        counts = (LAUNCHES["tap"], LAUNCHES["march"], LAUNCHES["splat"], LAUNCHES["fan"])
         img = r.render(maps, scales, wc, fc, pos, pitch, yaw, spray_attrs=attrs, fov=fov)
         torch.cuda.synchronize()
-        assert (tap.LAUNCHES - counts[0], march.LAUNCHES - counts[1],
-                splat.LAUNCHES - counts[2], fan.LAUNCHES - counts[3]) == eager_counts
+        assert (LAUNCHES["tap"] - counts[0], LAUNCHES["march"] - counts[1],
+                LAUNCHES["splat"] - counts[2], LAUNCHES["fan"] - counts[3]) == eager_counts
         assert eager_counts == (1, 1 if case == "march_pallas" else 0,
                                 1 if case == "render_spray" else 0,
                                 0 if case == "march_pallas" else 1)
@@ -1095,13 +1100,13 @@ def test_graphed_batched_step_is_bit_equal_to_eager(card):
         state, sps, clock, seq = ocean.state, sp_state, 0.0, []
         with ctx:
             for _ in range(2):
-                before = (fused_step.LAUNCHES, tap.LAUNCHES, splat.LAUNCHES)
+                before = (LAUNCHES["fused_step"], LAUNCHES["tap"], LAUNCHES["splat"])
                 state, sps, frames, last = fn(state, ocean.params, sps, clock, ocean.water_color,
                                               ocean.foam_color, (0.0, 12.0, 0.0), -12.0, 0.0,
                                               70.0, 1 / 30)
                 torch.cuda.synchronize()
-                assert (fused_step.LAUNCHES - before[0], tap.LAUNCHES - before[1],
-                        splat.LAUNCHES - before[2]) == (8, 4, 4)
+                assert (LAUNCHES["fused_step"] - before[0], LAUNCHES["tap"] - before[1],
+                        LAUNCHES["splat"] - before[2]) == (8, 4, 4)
                 clock += 4 / 30
                 seq.append((frames, state, sps, last))
         outs[mode] = seq

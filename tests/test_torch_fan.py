@@ -7,8 +7,9 @@ plain route takes the `amin` of a broadcast chain over (H/g, g, W, J). Here:
 every tier's tau table is strictly increasing in fp32, which makes the two
 the same; a loop-form twin of the kernel, in fp32 scalar arithmetic, equals
 the chain bit for bit on small inputs with NaN heights and slopes, empty
-windows and unmarchable pixels; the wrapper refuses what the kernel does not
-take, CPU tensors among it; and the renderer's CPU route reaches no kernel.
+windows and unmarchable pixels; the wrapper refuses what neither route
+takes and sends CPU tensors to the plain chain; and the renderer's CPU route
+reaches no kernel.
 The kernel itself runs only on the card (tests/test_torch_cuda.py).
 """
 import inspect
@@ -20,6 +21,7 @@ import torch
 from godotoceanwaves_tpu_torch.models import geometry
 from godotoceanwaves_tpu_torch.models.viewport import RENDER_TIERS
 from godotoceanwaves_tpu_torch.ops import fan
+from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
 
 F32 = np.float32
 
@@ -234,16 +236,28 @@ def good_inputs():
     (dict(dxz=torch.zeros(12, 10, dtype=torch.float64)), TypeError, "dxz must be float32"),
     (dict(i0=torch.zeros(3, 10, dtype=torch.int32)), TypeError, "i0 must be int64"),
     (dict(marchable=torch.ones(12, 10)), TypeError, "marchable must be bool"),
-    ({}, ValueError, "runs on a CUDA device, got cpu; CPU tensors take fan_bracket_plain"),
 ])
 def test_wrapper_rejects_what_it_does_not_take(change, exc, match):
     with pytest.raises(exc, match=match):
         fan.fan_bracket(**{**good_inputs(), **change}, ratio=0.97)
 
 
+@pytest.mark.parametrize("with_tsel", [False, True])
+def test_cpu_call_is_the_plain_route(with_tsel):
+    """On CPU tensors `fan_bracket` returns `fan_bracket_plain`'s results,
+    bit for bit, and counts no launch."""
+    args = fan_case(5)
+    before = LAUNCHES["fan"]
+    got = fan.fan_bracket(*args, with_tsel=with_tsel)
+    want = fan.fan_bracket_plain(*args, with_tsel=with_tsel)
+    assert len(got) == len(want) == 3 + with_tsel
+    assert all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+    assert LAUNCHES["fan"] == before
+
+
 def test_cpu_render_takes_the_plain_route(monkeypatch):
-    """`_fan_select` on CPU tensors runs the plain chain, reaches no kernel
-    and counts no launch."""
+    """`_fan_select` on CPU tensors goes through `fan_bracket` to the plain
+    chain behind it, reaches no kernel and counts no launch."""
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel route was taken on the CPU")
     calls = []
@@ -252,7 +266,7 @@ def test_cpu_render_takes_the_plain_route(monkeypatch):
     def spy(*args, **kwargs):
         calls.append(args[0].shape)
         return plain(*args, **kwargs)
-    monkeypatch.setattr(fan, "fan_bracket", refuse)
+    monkeypatch.setattr(fan, "_launch", refuse)
     monkeypatch.setattr(fan, "fan_bracket_plain", spy)
     d = geometry.camera_rays(64, 36, -12.0, 0.0, 70.0, device="cpu")
     cam = torch.tensor([0.0, 6.0, 0.0])
@@ -263,10 +277,10 @@ def test_cpu_render_takes_the_plain_route(monkeypatch):
 
     def sample_h(qx, qz):
         return torch.sin(0.3 * qx) * torch.cos(0.2 * qz)
-    before = fan.LAUNCHES
+    before = LAUNCHES["fan"]
     found, t_lo, t_hi = geometry._fan_select(sample_h, cam, d, t0, t1, marchable, 1600.0, 32,
                                              64, 8, 36, (torch.tensor(0.0), torch.tensor(1.0)),
                                              (-0.7, 0.7))
-    assert calls == [(32, 64)] and fan.LAUNCHES == before
+    assert calls == [(32, 64)] and LAUNCHES["fan"] == before
     assert bool(found.any()) and not bool(found[~marchable].any())
     assert bool((t_lo[found] <= t_hi[found]).all())

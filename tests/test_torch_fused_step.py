@@ -28,7 +28,7 @@ from godotoceanwaves_tpu.models.ocean import _foam_rates as jax_foam_rates
 from godotoceanwaves_tpu.ops import pallas_step
 
 from godotoceanwaves_tpu_torch.models.ocean import _foam_rates
-from godotoceanwaves_tpu_torch.ops import fft_plan, fused_step
+from godotoceanwaves_tpu_torch.ops import _build, fft_plan, fused_step
 from godotoceanwaves_tpu_torch.utils import convert
 
 N = 128
@@ -156,10 +156,10 @@ def test_multi_step_frame_k_equals_single_step_at_its_time(inputs):
 def test_cpu_tensors_take_the_plain_version(inputs):
     _, tscal = _scalars(*inputs, multi=False)
     args = _torch_args(inputs[1])
-    before = fused_step.LAUNCHES
+    before = _build.LAUNCHES["fused_step"]
     got = fused_step.fused_cascade_step(*args, tscal, map_dtype=torch.bfloat16)
     want = fused_step.fused_cascade_step_reference(*args, tscal, map_dtype=torch.bfloat16)
-    assert fused_step.LAUNCHES == before
+    assert _build.LAUNCHES["fused_step"] == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -260,14 +260,15 @@ def test_multi_frame_launch_pipelines_row_passes_ahead_of_column_passes(
     tw = z(n // 2, 2)
     disp, normal = z(cascades, frames, 3, n, n, dt=dtype), z(cascades, frames, 4, n, n, dt=dtype)
     plans = fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)
-    log, before = _Log(), fused_step.LAUNCHES
+    log, before = _Log(), _build.LAUNCHES["fused_step"]
     monkeypatch.setattr(torch.cuda, "Event", log.event_class())
+    monkeypatch.setattr(_build, "load", lambda: log)
     log.ops.append(("cols", 1, None))          # earlier work on the caller's stream
-    fused_step._launch_frames(log, log.stream(1), log.stream(2), h0, h0nc, omega, foam, scal,
+    fused_step._launch_frames(log.stream(1), log.stream(2), h0, h0nc, omega, foam, scal,
                               tw, scratches, disp, normal, foam_out, plans, dtype)
     log.ops.append(("cols", 1, None))          # later work on the caller's stream
     ops, reach = log.ops, _reaches(log.ops)
-    assert fused_step.LAUNCHES == before + 2 * frames
+    assert _build.LAUNCHES["fused_step"] == before + 2 * frames
     assert fused_step.frame_pipeline(frames, depth) == [
         (k, k % depth, k - depth if k >= depth else None) for k in range(frames)]
     rows = [j for j, op in enumerate(ops) if op[0] == "rows"]
@@ -318,6 +319,12 @@ def test_row_stream_is_one_of_its_own_a_thread_and_device(monkeypatch):
 
 def test_import_builds_nothing():
     """Importing the package neither compiles nor loads the CUDA library."""
-    code = ("import sys, godotoceanwaves_tpu_torch, godotoceanwaves_tpu_torch.ops.fused_step\n"
-            "assert 'godotoceanwaves_tpu_torch.ops._build' not in sys.modules\n")
+    code = ("import subprocess\n"
+            "def refuse(*args, **kwargs):\n"
+            "    raise AssertionError('the import started a process')\n"
+            "subprocess.Popen = subprocess.run = refuse\n"
+            "import godotoceanwaves_tpu_torch, godotoceanwaves_tpu_torch.ops.fused_step\n"
+            "from godotoceanwaves_tpu_torch.ops import _build\n"
+            "assert _build._load.cache_info().currsize == 0\n"
+            "assert not _build.LAUNCHES\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

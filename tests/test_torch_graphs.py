@@ -3,15 +3,19 @@
 A capture needs the card (`tests/test_torch_cuda.py` holds every graphed
 program against `graphs.disabled()` there). Here: a graphed callable on CPU
 tensors runs its function as it is; the key separates what `jax.jit`
-retraces on; `disabled()` nests; the launch tally and the kept constants of
-a capture; the results a replay hands back. And the frame programs the port
-captures (the render with and without spray, the spray step, the K-frame
-step, the ANSI field, the "mxu" gradient taps) make no host read on the
-card's route, checked on the CPU by a torch function mode that raises on
-every read of a tensor's value (the gradient-tap kernel, which has no CPU
-mode, is stood in for by zeros of its output's shape).
+retraces on; `disabled()` nests; the launch call (`ops/_build.py`) against
+a fake library; the launch tally and the kept constants of a capture; the
+results a replay hands back. And the frame programs the port captures
+(the render with and without spray, the spray step, the K-frame step, the
+ANSI field, the "mxu" gradient taps) make no host read on the card's route,
+checked on the CPU by a torch function mode that raises on every read of a
+tensor's value (the gradient-tap kernel, which has no CPU mode, is stood in
+for by zeros of its output's shape).
 """
+import collections
 import dataclasses
+import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,7 +27,7 @@ from godotoceanwaves_tpu_torch.models import geometry, shading, spray
 from godotoceanwaves_tpu_torch.models.ocean import OceanMaps
 from godotoceanwaves_tpu_torch.models.viewport import (RENDER_TIERS, SceneRenderer,
                                                        SpraySession, make_batched_step)
-from godotoceanwaves_tpu_torch.ops import tap
+from godotoceanwaves_tpu_torch.ops import _build, tap
 from godotoceanwaves_tpu_torch.utils import graphs, live
 
 
@@ -92,27 +96,88 @@ def test_disabled_nests_and_restores():
     assert graphs.enabled()
 
 
-def test_a_capture_tallies_launches_and_keeps_cached_constants():
+class FakeSymbol:
+    """A library entry that records its calls and returns `rc`."""
+
+    def __init__(self):
+        self.calls, self.rc = [], 0
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.rc
+
+
+class FakeLib:
+    """Stands in for `ctypes.CDLL`: every symbol is a `FakeSymbol`."""
+
+    def __init__(self, path):
+        self.path, self.symbols = path, {}
+
+    def __getattr__(self, name):
+        return self.symbols.setdefault(name, FakeSymbol())
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """`_build.load()` returns a `FakeLib`, loaded as the real library is;
+    `_build.LAUNCHES` starts empty."""
+    monkeypatch.setattr(_build, "compile_library", lambda: (Path("fake.so"), ""))
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    _build._load.cache_clear()
+    try:
+        yield _build.load()
+    finally:
+        _build._load.cache_clear()
+
+
+def test_launch_calls_the_symbol_raises_on_its_error_and_counts(fake_lib):
+    """`_build.launch` calls the library's symbol with the arguments; a
+    nonzero return raises with the symbol and the CUDA error and counts
+    nothing; outside a capture a launch counts 1 for its op, inside one it
+    goes to the capture's tally only, and a replay of that tally counts it."""
+    _build.launch("tap", "lod_tap", 1, 2)
+    assert fake_lib.lod_tap.calls == [(1, 2)] and _build.LAUNCHES == {"tap": 1}
+    fake_lib.march_heightfield.rc = 700
+    with pytest.raises(RuntimeError, match="march_heightfield launch failed: cudaError 700"):
+        _build.launch("march", "march_heightfield")
+    assert _build.LAUNCHES == {"tap": 1}
+    tally = collections.Counter()
+    with _build.recording(tally):
+        _build.launch("tap", "lod_tap")
+        _build.launch("fan", "fan_bracket")
+        _build.launch("tap", "lod_tap")
+    assert tally == {"tap": 2, "fan": 1} and _build.LAUNCHES == {"tap": 1}
+    seen = []
+    other = threading.Thread(target=lambda: seen.append(_build.launch("fan", "fan_bracket")))
+    with _build.recording(collections.Counter()):
+        other.start()                # another thread's launch is made, not recorded
+        other.join(timeout=60)
+    assert not other.is_alive() and seen == [None]
+    _build.made(tally)
+    _build.made(tally)
+    assert _build.LAUNCHES == {"tap": 5, "fan": 3}
+
+
+def test_a_capture_tallies_launches_and_keeps_cached_constants(fake_lib):
     """Outside a capture a launch counts 1; inside one it counts 0 and goes
     to the capture's tally, which each replay adds; a cached constant read
     during a capture is held by it."""
-    assert graphs.counted(tap.__name__) == 1
+    _build.launch("tap", "lod_tap")
+    assert _build.LAUNCHES == {"tap": 1}
     capture = graphs._Capture()
     graphs._state.capture = capture
     try:
-        assert graphs.counted(tap.__name__) == 0
-        assert graphs.counted(tap.__name__) == 0
-        const = shading._const((0.25, 0.5, 0.75), torch.device("cpu"))
+        with _build.recording(capture.tally):
+            _build.launch("tap", "lod_tap")
+            _build.launch("tap", "lod_tap")
+            const = shading._const((0.25, 0.5, 0.75), torch.device("cpu"))
     finally:
         graphs._state.capture = None
-    assert capture.tally == {tap.__name__: 2}
+    assert capture.tally == {"tap": 2} and _build.LAUNCHES == {"tap": 1}
     assert any(k is const for k in capture.kept)
-    before = tap.LAUNCHES
-    try:
-        graphs._add_launches(capture.tally)
-        assert tap.LAUNCHES == before + 2
-    finally:
-        tap.LAUNCHES = before
+    _build.made(capture.tally)
+    assert _build.LAUNCHES == {"tap": 3}
 
 
 def test_results_hand_back_passed_through_inputs_and_copy_the_rest():

@@ -16,6 +16,7 @@ from godotoceanwaves_tpu.ops.pallas_march import march_heightfield as jax_march
 
 from godotoceanwaves_tpu_torch.models import geometry as tg
 from godotoceanwaves_tpu_torch.ops import march
+from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
 
 G = 64
 ORIGIN, CELL = -256.0, 512.0 / (G - 1)
@@ -113,11 +114,11 @@ def test_plain_march_keeps_frame_shape():
     framed = march.march_heightfield(args[0], args[1].reshape(32, 64, 3),
                                      *(a.reshape(32, 64) for a in args[2:5]), *args[5:],
                                      ORIGIN, CELL, march_steps=16)
-    before = march.LAUNCHES
+    before = LAUNCHES["march"]
     for a, b in zip(flat, framed):
         assert b.shape == (32, 64)
         assert torch.equal(a.reshape(32, 64), b)
-    assert march.LAUNCHES == before
+    assert LAUNCHES["march"] == before
 
 
 def test_render_pallas_march_matches_xla_bracket():

@@ -15,6 +15,7 @@ import torch
 
 from godotoceanwaves_tpu_torch.models import shading
 from godotoceanwaves_tpu_torch.ops import splat
+from godotoceanwaves_tpu_torch.ops._build import LAUNCHES
 
 # a lobe's sigma: the particle's clamp [0.6, 2.2] times the puff's sigma
 # fractions in [0.4, 1.0], both ends and points between, as fp32 products
@@ -118,10 +119,10 @@ def test_cpu_tensors_take_the_plain_route(monkeypatch, sprite):
     def refuse(*args, **kwargs):
         raise AssertionError("the kernel route was taken on the CPU")
     monkeypatch.setattr(splat, "spray_composite", refuse)
-    before = splat.LAUNCHES
+    before = LAUNCHES["splat"]
     got = shading.splat_spray(img, pos, scale, dissolve, visible, **kw)
     want = shading._splat_spray_plain(img, pos, scale, dissolve, visible, *kw.values())
-    assert splat.LAUNCHES == before
+    assert LAUNCHES["splat"] == before
     assert torch.equal(got, want)
     assert float((got - img).abs().max()) > 0.05
 

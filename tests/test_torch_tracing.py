@@ -12,6 +12,7 @@ imports only numpy, torch and the port. On the card:
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest
 """
+import collections
 import json
 import sys
 import threading
@@ -23,7 +24,7 @@ import torch
 
 import godotoceanwaves_tpu_torch as T
 from godotoceanwaves_tpu_torch.models.viewport import FramePipeline, SceneRenderer, SpraySession
-from godotoceanwaves_tpu_torch.ops import fft_plan, fused_step
+from godotoceanwaves_tpu_torch.ops import _build, fft_plan, fused_step
 from godotoceanwaves_tpu_torch.parallel import sharding
 from godotoceanwaves_tpu_torch.utils import MapStreamer, graphs, observability, profiling
 
@@ -230,18 +231,21 @@ def test_sharded_step_spans_keep_their_names():
 
 
 def test_launch_deltas_count_only_while_on(monkeypatch):
-    """A launch counts as `launches.<ops module>` where its wrapper adds to
-    `LAUNCHES` (`graphs.counted`), and a replay as its capture's tally."""
-    module = fused_step.__name__
-    assert graphs.counted(module) == 1                  # off: not counted
+    """A launch counts as `launches.<op>` where `_build.launch` counts it in
+    `LAUNCHES`, and a replay as its capture's tally (`_build.made`)."""
+    monkeypatch.setattr(_build, "load", lambda: types.SimpleNamespace(
+        fused_step_rows=lambda: 0))
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    launch = lambda: _build.launch("fused_step", "fused_step_rows")
+    launch()                                            # off: not counted
     with observability.tracing():
-        assert graphs.counted(module) == 1
+        launch()
         with observability.span("x"):
-            graphs.counted(module)
-        monkeypatch.setattr(fused_step, "LAUNCHES", fused_step.LAUNCHES)
-        graphs._add_launches({module: 3})               # a replay of a graph of 3
-    assert graphs.counted(module) == 1                  # off again
+            launch()
+        _build.made({"fused_step": 3})                  # a replay of a graph of 3
+    launch()                                            # off again
     assert observability.snapshot()["counters"] == {"launches.fused_step": 5}
+    assert _build.LAUNCHES == {"fused_step": 7}
 
 
 def test_multi_frame_launch_counts_each_pass_of_both_streams(monkeypatch):
@@ -249,6 +253,8 @@ def test_multi_frame_launch_counts_each_pass_of_both_streams(monkeypatch):
     passes count as `launches.fused_step`, 2 a frame."""
     class Lib:
         fused_step_rows = fused_step_cols = staticmethod(lambda *args: 0)
+
+    monkeypatch.setattr(_build, "load", lambda: Lib)
 
     class Stream:
         cuda_stream = 0
@@ -260,7 +266,7 @@ def test_multi_frame_launch_counts_each_pass_of_both_streams(monkeypatch):
     n, c, k = 16, 2, 5
     with observability.tracing():
         fused_step._launch_frames(
-            Lib, Stream, Stream, z(c, 2, n, n), z(c, 2, n, n), z(c, n, n), z(c, n, n),
+            Stream, Stream, z(c, 2, n, n), z(c, 2, n, n), z(c, n, n), z(c, n, n),
             z(c, 1, 8), z(n // 2, 2), [z(c, n, n, 8)] * 3, z(c, k, 3, n, n), z(c, k, 4, n, n),
             z(c, n, n), (fft_plan.step_rows_plan(n), fft_plan.step_cols_plan(n)), torch.float32)
     assert observability.snapshot()["counters"] == {"launches.fused_step": 2 * k}
