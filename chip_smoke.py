@@ -166,6 +166,13 @@ and the CUDA toolkit. Phases, each of which raises on failure:
     (torch.profiler, medians of 3 blocks), beside the bound of the
     compares this frame's walks make and of the worst case (every pixel
     over the whole table).
+24. The spray step (`ops/spray.py`, `csrc/spray.cu`; `--spray` runs
+    phases 1 and 24 only) at the frame cell's sizes: phase 18's scene (3 x
+    1024^2 bf16), 32768 particles advanced 90 times at dt 1/60, then 8
+    chained advances on each route, the kernel's state and attributes
+    against `spray_step_plain`'s bit for bit; each route timed as phase 23
+    times the fan, beside the bound of the bytes a step must move (the
+    state in and out, the attributes, every particle's taps).
 
 Every kernel's entry in the kernels line has its bound: the larger of the
 bytes its function must move (each input read once, each output written
@@ -175,8 +182,9 @@ FP32_TFLOPS), from this run's inputs. K5's and K6's entries carry the
 kernel-only `ms` and the whole wrapper call `call_ms` (phase 17). Prints a JSON line of
 the sharded step, a JSON line of the scene loop, a JSON line of the browser
 viewer, a JSON line of the multi-process legs, a JSON line of the benchmark's
-record, a JSON line of the captured frame programs, the card's name and
-power limit, a JSON line of the kernels, then as its last line
+record, a JSON line of the captured frame programs, a JSON line each of the
+fan select and the spray step, the card's name and power limit, a JSON line
+of the kernels, then as its last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result line, when no CUDA device is present or any phase
 fails. Imports nothing of JAX.
@@ -312,6 +320,9 @@ GRAPH_FIELD = (88.0, 96, 88)  # the ANSI field's (extent, cols, rows): LiveViewe
 SPLAT_CALLS, SPLAT_REPEATS = 20, 3      # the splat leg's profiled blocks of calls
 FAN_SIZES = ((1280, 720), (640, 360))   # phase 23: the frame cell's size and the web viewer's
 FAN_CALLS, FAN_BLOCKS = 20, 3           # phase 23: CUDA-event blocks of back-to-back calls
+# phase 24: the spray step at the frame cell's sizes (3 x 1024^2 bf16, 32768
+# particles, dt 1/60), from the state after SPRAY_WARM advances
+SPRAY_WARM, SPRAY_CHAIN, SPRAY_DT = 90, 8, 1 / 60
 # The card's peaks (H100 SXM at 700 W: HBM3 rate and dense FP32 rate)
 HBM_TBPS = 3.35
 FP32_TFLOPS = 67.0
@@ -365,7 +376,7 @@ def card_line() -> str:
 def launch_counts() -> dict:
     """The report's name of each op whose launches `_build.LAUNCHES` counts."""
     return {"K1": "fused_step", "K2": "planes_fft", "K3": "rows_fft", "K4": "strip_step",
-            "K5": "tap", "K6": "march", "splat": "splat", "fan": "fan"}
+            "K5": "tap", "K6": "march", "splat": "splat", "fan": "fan", "spray": "spray"}
 
 
 def launches(op: str) -> int:
@@ -1813,9 +1824,9 @@ def phase_scene(torch, T, dev) -> dict:
     log(f"[18] scene loop: {SCENE['warmup']} warm-up updates, then {n} frames of update + "
         f"spray advance ({SCENE['particles']} particles) + {width}x{height} render through "
         f"FramePipeline -> launches {counts}")
-    check(counts == only(K1=2 * n, K5=n, splat=n, fan=n),
-          f"expected {2 * n} K1 (2 an update), {n} K5, {n} splat chains and {n} fan selects "
-          f"(1 a frame), counted {counts}")
+    check(counts == only(K1=2 * n, K5=n, splat=n, fan=n, spray=n),
+          f"expected {2 * n} K1 (2 an update), {n} K5, {n} splat chains, {n} fan selects "
+          f"and {n} spray steps (1 a frame), counted {counts}")
     check(len(frames) == n and all(f.shape == (height, width, 3) and f.dtype == np.uint8
                                    for f in frames), "the pipeline lost or reshaped a frame")
     vis = torch.stack(visible).cpu().numpy()
@@ -1910,9 +1921,10 @@ def phase_scene(torch, T, dev) -> dict:
         f"(>= {BATCH_EQUAL}); launches {bcounts}")
     check(int(diff.max()) <= TOL_BATCH_STEP and equal >= BATCH_EQUAL,
           "batched frames disagree with the sequential loop")
-    check(bcounts == only(K1=2 * total, K5=total, splat=total, fan=total),
+    check(bcounts == only(K1=2 * total, K5=total, splat=total, fan=total, spray=total),
           f"expected {2 * total} K1 (a row and a column pass a frame, from one multi-frame "
-          f"call a batch), {total} K5, {total} splat chains and {total} fan selects")
+          f"call a batch), {total} K5, {total} splat chains, {total} fan selects and {total} "
+          f"spray steps")
     out.update(batched_max_step=int(diff.max()), batched_equal_share=equal,
                batched_launches=bcounts)
     del seq_o, seq_s, bat_o, bat_s, ocean_r, spray_r
@@ -2871,9 +2883,10 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
     (gs, ga), (es, ea) = runs["graphed"], runs["eager"]
     spray_equal = (all(torch.equal(gs[k], es[k]) for k in es)
                    and all(torch.equal(g[k], e[k]) for g, e in zip(ga, ea) for k in e))
-    log(f"[22] spray step ({SCENE['particles']} particles): {GRAPH_SPRAY_STEPS} advances, a "
-        f"restore, {GRAPH_SPRAY_STEPS} more, graphed vs eager: bit-equal {spray_equal}")
-    check(spray_equal, "the graphed spray step differs from the eager one")
+    log(f"[22] spray step ({SCENE['particles']} particles, one kernel launch an advance either "
+        f"way): {GRAPH_SPRAY_STEPS} advances, a restore, {GRAPH_SPRAY_STEPS} more, graphs on vs "
+        f"graphs.disabled(): bit-equal {spray_equal}")
+    check(spray_equal, "the spray step differs with graphs on and off")
     out["spray_bit_equal"] = spray_equal
 
     # the ANSI field
@@ -3003,7 +3016,7 @@ def phase_graphs(torch, T, dev, card: str) -> dict:
         f"capture {fn.program.capture_seconds} s; card {card}")
     check(batched_equal, "the graphed K-frame step differs from the eager one")
     check(counts["graphed"] == counts["eager"] == only(K1=4 * k, K5=2 * k, splat=2 * k,
-                                                       fan=2 * k),
+                                                       fan=2 * k, spray=2 * k),
           f"K-frame step launches: graphed {counts['graphed']}, eager {counts['eager']}")
     out["batched"] = dict(bit_equal=batched_equal, launches=counts["graphed"],
                           ms_frame_graphed=times["graphed"], ms_frame_eager=times["eager"],
@@ -3141,6 +3154,76 @@ def phase_fan(torch, dev, maps, scales, card: str) -> dict:
     return out
 
 
+def spray_work(torch, fields, outs, attrs, maps) -> dict:
+    """What one spray step needs: the state read once and written once, the
+    attributes written once (custom_z is the state's), and every particle's
+    bilinear taps, 4 texels of 3 normal and 3 displacement channels a
+    cascade, each read once; the least time (HBM_TBPS)."""
+    cascades = maps.displacement.shape[0]
+    taps = len(fields[0]) * cascades * 4 * 6 * maps.displacement.element_size()
+    moved = nbytes(*fields, *outs, attrs["position"], attrs["scale"], attrs["dissolve"],
+                   attrs["visible"]) + taps
+    least, by = bound(moved, 0.0)
+    return dict(bytes=moved, bound_ms=least, bound_by=by)
+
+
+def phase_spray(torch, T, dev, card: str) -> dict:
+    """Phase 24: the spray step's kernel against its plain route at the
+    frame cell's sizes."""
+    from godotoceanwaves_tpu_torch.models import spray
+    from godotoceanwaves_tpu_torch.ops import spray as spray_kernel
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    ocean, session = scene_session(torch, T, dev)
+    scales = ocean.params.map_scales()
+    for _ in range(SPRAY_WARM):
+        session.advance(ocean.update(SPRAY_DT), scales, SPRAY_DT)
+    params, state = session.ensure_init()
+    clock = session.clock
+    # a chain of advances on both routes from the warm state, on evolving maps
+    got, want, equal = state, state, True
+    for _ in range(SPRAY_CHAIN):
+        maps = ocean.update(SPRAY_DT)
+        clock += SPRAY_DT
+        got, got_attrs = spray.spray_step(params, got, maps, scales, np.float32(clock))
+        want, want_attrs = spray.spray_step_plain(params, want, maps, scales, np.float32(clock))
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+        equal &= all(torch.equal(bits(getattr(got, f)), bits(getattr(want, f)))
+                     for f in spray_kernel.FIELDS)
+        equal &= all(torch.equal(bits(got_attrs[k]), bits(want_attrs[k])) for k in want_attrs)
+    check(equal, "the spray kernel differs from its plain route")
+    maps, now = ocean.maps, np.float32(clock + SPRAY_DT)
+    kernel = lambda: spray.spray_step(params, got, maps, scales, now)
+    plain = lambda: spray.spray_step_plain(params, got, maps, scales, now)
+    runs = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        runs[name] += event_blocks(torch, kernel if name == "kernel" else plain)
+    new, attrs = kernel()
+    fields = [getattr(got, f) for f in spray_kernel.FIELDS]
+    outs = [getattr(new, f) for f in spray_kernel.FIELDS]
+    out = dict(bit_equal=equal, particles=params.num_particles,
+               started=int(new.has_started.sum()), active=int(new.active.sum()),
+               visible=int(attrs["visible"].sum()), call_ms=median(runs["kernel"]),
+               call_ms_all=runs["kernel"], plain_ms=median(runs["plain"]),
+               plain_ms_all=runs["plain"],
+               device_ms=device_ms_a_call(torch, kernel, "spray_kernel"),
+               call_device_ms=device_ms_a_call(torch, kernel),
+               plain_device_ms=device_ms_a_call(torch, plain),
+               **spray_work(torch, fields, outs, attrs, maps))
+    out["roofline"] = out["bound_ms"] / out["device_ms"]
+    log(f"[24] spray step ({out['particles']} particles, {SCENE['map_size']}^2 "
+        f"{SCENE['map_dtype']} x 3): {SPRAY_CHAIN} chained advances, kernel vs plain route "
+        f"bit-equal {equal}; {out['started']} started, {out['active']} active, "
+        f"{out['visible']} visible; events ms a call (medians of {len(runs['kernel'])} blocks "
+        f"of {FAN_CALLS}): kernel route {out['call_ms']:.4f}, plain route "
+        f"{out['plain_ms']:.4f}; device ms a call (torch.profiler, medians of "
+        f"{SPLAT_REPEATS} blocks): the kernel {out['device_ms']:.4f}, the call's every "
+        f"operation {out['call_device_ms']:.4f}, the plain route "
+        f"{out['plain_device_ms']:.4f}; {out['bytes'] / 1e6:.2f} MB: bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}), {out['roofline']:.1%} of it; "
+        f"card {card}")
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3203,9 +3286,14 @@ def main(argv: list) -> int:
         log(json.dumps({"fan": phase_fan(torch, dev, maps0, ocean.params.map_scales(), card)}))
         log(card_line())
         return 0
+    if argv == ["--spray"]:
+        # phase 24 only: the spray step's kernel against its plain route
+        log(json.dumps({"spray": phase_spray(torch, T, dev, card)}))
+        log(card_line())
+        return 0
     if argv:
         print(f"usage: {sys.argv[0]} [--alone | --scene | --web | --multihost | --bench | "
-              "--graphs | --fan]", file=sys.stderr)
+              "--graphs | --fan | --spray]", file=sys.stderr)
         return 2
     errs = phase_kernel_vs_plain(torch, T, fs, dev)
     phase_oracle(torch, T, fs, dev)
@@ -3223,6 +3311,8 @@ def main(argv: list) -> int:
     phase_render_timing(torch, dev, path["maps"], path["scales"], card)
     fan_line = {"fan": phase_fan(torch, dev, path["maps"], path["scales"], card)}
     del ocean, maps0, path["maps"]
+    torch.cuda.empty_cache()
+    spray_line = {"spray": phase_spray(torch, T, dev, card)}
     torch.cuda.empty_cache()
     rows_errs = phase_rows_vs_plain(torch, rf, fft, dev)
     shard4 = phase_sharded_main(torch, T, par, dev)
@@ -3264,6 +3354,7 @@ def main(argv: list) -> int:
     log(json.dumps(bench_line))
     log(json.dumps(graphs_line))
     log(json.dumps(fan_line))
+    log(json.dumps(spray_line))
     log(card_line())
     log(json.dumps({"kernels": [
         dict(KERNELS["K1"], route="cuda", launches=k1_launches,

@@ -3,11 +3,14 @@
 Counterpart of the JAX package's `models/spray.py`: the process shader
 assets/shaders/spatial/sea_spray_particle.gdshader (the GPUParticles3D of
 main.tscn:133-140) over one `SprayState` of per-particle tensors, advanced
-by `spray_step`. The per-particle branches (waiting / just started / alive
-/ expired) are `torch.where` masks, and the respawn cycle re-randomizes
-through the reference's hash32 (`ops.rng.hash32_uvec2`). A step reads
-nothing back to the host: `now`, the cycle counters and the masks stay on
-the particles' device, and its constants are cached there
+by `spray_step`. On the card a step is one launch of `csrc/spray.cu`
+(`ops/spray.py`), a thread a particle; any other device runs
+`spray_step_plain`, where the per-particle branches (waiting / just started
+/ alive / expired) are `torch.where` masks and the respawn cycle
+re-randomizes through the reference's hash32 (`ops.rng.hash32_uvec2`). The
+kernel equals the plain route on the card bit for bit. A step reads nothing
+back to the host: `now`, the cycle counters and the masks stay on the
+particles' device, and the plain route's constants are cached there
 (`shading._const`).
 
 Particle lifecycle (gdshader line refs):
@@ -30,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import spray as spray_kernel
 from ..ops.rng import hash32_uvec2
 from . import shading
 from .cascade import require_device
@@ -126,7 +130,24 @@ def spray_step(params: SprayParams, state: SprayState, maps, map_scales: torch.T
 
     maps: OceanMaps (channel-first); map_scales: (C, 4). Output dict:
     position (P, 3), scale (P, 3), dissolve (P,), custom_z (P,), visible (P,).
+    A state on the card takes one launch of the spray kernel
+    (`ops/spray.py`, `launches.spray`); any other runs `spray_step_plain`.
     """
+    dev = state.start_time.device
+    if dev.type != "cuda":
+        return spray_step_plain(params, state, maps, map_scales, now)
+    fields, (position, scale, dissolve, visible) = spray_kernel.spray_step(
+        params, [getattr(state, name) for name in spray_kernel.FIELDS], maps.displacement,
+        maps.normal, map_scales, _now(now, dev))
+    new_state = SprayState(**dict(zip(spray_kernel.FIELDS, fields)))
+    return new_state, {"position": position, "scale": scale, "dissolve": dissolve,
+                       "custom_z": new_state.custom_z, "visible": visible}
+
+
+def spray_step_plain(params: SprayParams, state: SprayState, maps, map_scales: torch.Tensor,
+                     now) -> tuple[SprayState, dict]:
+    """`spray_step` as PyTorch operations, on any device: the CPU's route and
+    the kernel's reference on the card."""
     dev = state.start_time.device
     p = params.num_particles
     idx = torch.arange(p, dtype=torch.int32, device=dev)

@@ -9,15 +9,17 @@ work, and the lazily created persistent spray state (the reference scene
 always renders its 32768-particle spray, main.tscn:133-140). This module is
 its single owner, so the surfaces cannot drift apart.
 
-On the card each of the JAX package's jitted programs here is a captured
-CUDA graph (`utils/graphs.py`), replayed once a call: the render with or
-without the spray composite (one K5 launch inside), the spray step, and
-the K-frame step (K1's multi-frame launch, then a spray step and a render a
-tick). The pose, the colours and the clocks reach the card as tensors
-through one non-blocking copy a call, so a replay never bakes in the first
-call's numbers. Nothing reads back to the host, so the host runs ahead and
-`FramePipeline` overlaps each frame's device-to-host copy with the next
-frame's work. `graphs.disabled()` runs the same programs eagerly.
+On the card the JAX package's jitted frame programs here are captured CUDA
+graphs (`utils/graphs.py`), replayed once a call: the render with or
+without the spray composite (one K5 launch inside) and the K-frame step
+(K1's multi-frame launch, then a spray step and a render a tick). The spray
+step alone is one kernel launch (`ops/spray.py`) with no graph around it: a
+graph would first copy the maps into its buffers. The pose, the colours and
+the clocks reach the card as tensors through one non-blocking copy a call,
+so a replay never bakes in the first call's numbers. Nothing reads back
+to the host, so the host runs ahead and `FramePipeline` overlaps each
+frame's device-to-host copy with the next frame's work.
+`graphs.disabled()` runs the same programs eagerly.
 
 Spans: `spray.advance`, `render.frame`, `pipeline.push` and `pipeline.wait`
 (the wait for the previous frame's copy); counters: `pipeline.frames` and
@@ -293,11 +295,9 @@ class FramePipeline:
         self._pending = None
 
 
-# The spray step as one captured graph on the card, shared by every session
-# (keyed by its params, the particle count and the maps' shape and dtype):
-# a throwaway session that warms a configuration captures the graph the live
-# session then replays.
-_spray_step = graphs.graphed(spray.spray_step)
+# The spray step every session advances by: on the card one launch of the
+# spray kernel, which reads the maps in place.
+_spray_step = spray.spray_step
 
 
 class SpraySession:
@@ -313,7 +313,6 @@ class SpraySession:
         self._emitter_extent = emitter_extent
         self._params = None
         self._state = None
-        self._host = graphs.HostValues()
         self.clock = 0.0
 
     @property
@@ -333,15 +332,12 @@ class SpraySession:
 
     def advance(self, maps, scales, dt: float) -> dict:
         """Step the particle state machine by dt -> billboard attrs dict
-        (feed to SceneRenderer.render(spray_attrs=...)); on the card one
-        replay of the shared spray-step graph."""
+        (feed to SceneRenderer.render(spray_attrs=...)); on the card the
+        clock's fill and one launch of the spray kernel."""
         with span("spray.advance"):
             params, state = self.ensure_init()
             self.clock += dt
-            now = np.float32(self.clock)
-            if self.device.type == "cuda" and graphs.enabled():
-                (now,) = self._host.put([now], self.device)
-            self._state, attrs = _spray_step(params, state, maps, scales, now)
+            self._state, attrs = _spray_step(params, state, maps, scales, np.float32(self.clock))
             return attrs
 
     def checkpoint(self) -> dict | None:

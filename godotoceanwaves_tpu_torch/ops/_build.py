@@ -12,7 +12,7 @@ reconfiguration worker) run one build between them.
 Package code launches a kernel through `launch` alone: it calls the
 library's symbol, raises on the CUDA error it returns, and counts one launch
 of the op (`fused_step`, `strip_step`, `planes_fft`, `rows_fft`, `tap`,
-`march`, `splat`, `fan`) in `LAUNCHES` and in the trace counter
+`march`, `splat`, `fan`, `spray`) in `LAUNCHES` and in the trace counter
 `launches.<op>`. A launch that a thread records into a CUDA graph
 (`recording`, set by `utils/graphs.py` around a capture) is not made: it
 goes to the capture's tally, and each replay counts that tally (`made`).
@@ -41,14 +41,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per-source flags. The render kernels round interpolation weights to bf16,
 # so a contracted multiply-add that moves a weight by an ulp can flip its
-# rounding, and the fan select must round as the plain chain's separate
-# launches do: they build without contraction.
+# rounding, and the fan select and the spray step must round as their plain
+# chains' separate launches do: they build without contraction.
 SOURCE_FLAGS = {"tap.cu": ("-fmad=false",), "march.cu": ("-fmad=false",),
-                "splat.cu": ("-fmad=false",), "fan.cu": ("-fmad=false",)}
+                "splat.cu": ("-fmad=false",), "fan.cu": ("-fmad=false",),
+                "spray.cu": ("-fmad=false",)}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _FP = ctypes.POINTER(ctypes.c_float)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # fused_step_rows(h0, h0nc, omega, scal, tw, scratch, c, n, frame, rows, pitch, jpitch,
     #                 stream)
@@ -84,6 +87,13 @@ _SIGNATURES = {
     #             h, w, tsel, found, t_lo, t_hi, stream)
     "fan_bracket": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P, _P),
+    # spray_step(start_pos, start_time, lifetime, custom_z, scale_factor, base_scale, active,
+    #            has_started, cycle, disp, normal, strides, dtype, cascades, n, scales, now,
+    #            consts, particles, grid, seed1, o_start_pos, o_start_time, o_lifetime,
+    #            o_custom_z, o_scale_factor, o_base_scale, o_active, o_has_started, o_cycle,
+    #            position, scale, dissolve, visible, stream)
+    "spray_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _P, _P, _FP, _I,
+                   _I, _U, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -911,13 +911,11 @@ class WebViewer:
     def _warm_frame(self, viewport: SceneRenderer, map_size: int) -> None:
         """Run `map_size`'s step and `viewport`'s frame once on throwaway
         state (no lock held: frames keep flowing), ending in a fetch. On the
-        card this captures the renderer's graph and the spray step's for the
-        new shapes (`utils/graphs.py`), and builds the per-(N, device) FFT
-        tables and the geometry caches, all of which the first real frame
-        would otherwise do inside the serving loop. A throwaway spray
-        session, so warming does not advance the live particles' respawn
-        cycles; it captures the shared spray-step graph the live session
-        replays."""
+        card this captures the renderer's graph for the new shapes
+        (`utils/graphs.py`), and builds the per-(N, device) FFT tables and
+        the geometry caches, all of which the first real frame would
+        otherwise do inside the serving loop. A throwaway spray session, so
+        warming does not advance the live particles' respawn cycles."""
         from ..models.ocean import init_state, step
         cfg = dataclasses.replace(self.ocean.config, map_size=map_size)
         params = self.ocean.params

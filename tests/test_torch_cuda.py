@@ -15,13 +15,14 @@ the planes IFFT (K2) and the rows DFT (K3) <= 1e-4 relative RMS against
 torch.fft at every N = 16..8192; the spray splat on the card vs the CPU
 <= 2e-3 max abs (both round the composite's operands to bf16), and the splat
 kernel vs the plain route on the card <= 1e-4 max abs (the same products,
-summed in another order); the fan march's bracket select bit-equal to its
-plain chain. The browser
+summed in another order); the fan march's bracket select and the spray step
+bit-equal to their plain routes. The browser
 viewer serves frames from the card over localhost as standard-library PNGs.
 The captured frame programs (utils/graphs.py) replay bit-equal to the same
 programs run eagerly inside `graphs.disabled()`.
 """
 import contextlib
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -858,6 +859,77 @@ def test_fan_wrapper_raises_on_what_it_does_not_take(card, fan_scene, monkeypatc
     assert LAUNCHES["fan"] == before
 
 
+# --- the spray step (ops/spray.py) against its plain route -----------------
+# The maps it is held to: the frame cell's (3 x 1024^2 bf16), the same in
+# fp32, and one cascade at 256^2; the frame cell's particle count and a
+# ragged one. 120 advances at dt 1/60, then long ones that respawn every
+# particle.
+
+SPRAY_MAPS = {"3x1024-bf16": (1024, "bfloat16", 3), "3x1024-fp32": (1024, "float32", 3),
+              "1x256-bf16": (256, "bfloat16", 1)}
+SPRAY_DTS = (1 / 60,) * 120 + (1.7, 2.9, 0.6, 4.1)
+
+
+def spray_mismatch(state, attrs, plain, want) -> list:
+    """The fields and attributes that differ in any bit: (name, elements that
+    differ, largest abs difference, largest difference relative to the plain
+    route's magnitude)."""
+    from godotoceanwaves_tpu_torch.models import spray
+    pairs = [(f.name, getattr(state, f.name), getattr(plain, f.name))
+             for f in dataclasses.fields(spray.SprayState)]
+    pairs += [(f"attrs.{k}", attrs[k], want[k]) for k in want]
+    out = []
+    for name, a, b in pairs:
+        bits = (lambda x: x.view(torch.int32)) if a.dtype == torch.float32 else (lambda x: x)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+            d = (a.double() - b.double()).abs()
+            out.append((name, int((bits(a) != bits(b)).sum()), float(d.max()),
+                        float((d / b.double().abs().clamp_min(1e-30)).max())))
+    return out
+
+
+@pytest.mark.parametrize("maps_case", sorted(SPRAY_MAPS))
+@pytest.mark.parametrize("p", [32768, 1000])
+def test_spray_kernel_matches_the_plain_route(card, maps_case, p):
+    """From one fresh state, the kernel route (`spray_step`) and
+    `spray_step_plain` advance side by side on the same evolving maps: every
+    field of the state and every attribute equal bit for bit after each
+    advance (the bools and `cycle`, so every activation decision, and the
+    floats); one launch of op `spray` an advance and nothing else; each
+    kernel advance under `set_sync_debug_mode("error")`."""
+    from godotoceanwaves_tpu_torch.models import spray
+    from godotoceanwaves_tpu_torch.models.ocean import OceanMaps
+    n, dtype, cascades = SPRAY_MAPS[maps_case]
+    ocean = T.Ocean(map_size=n, map_dtype=dtype, updates_per_second=0, device=card)
+    for _ in range(10):
+        ocean.update(1 / 30)
+    scales = ocean.params.map_scales()[:cascades]
+    params = spray.SprayParams(num_particles=p, emitter_extent=60.0)
+    state = plain = spray.spray_init(params, device=card)
+    now, started, activated = 0.0, 0, 0
+    for i, dt in enumerate(SPRAY_DTS):
+        full = ocean.update(1 / 60)
+        maps = OceanMaps(displacement=full.displacement[:cascades],
+                         normal=full.normal[:cascades])
+        now += dt
+        plain, want = spray.spray_step_plain(params, plain, maps, scales, np.float32(now))
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, got = spray.spray_step(params, state, maps, scales, np.float32(now))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        made = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v != before.get(k, 0)}
+        assert made == {"spray": 1}, made
+        assert got["custom_z"] is state.custom_z
+        mismatch = spray_mismatch(state, got, plain, want)
+        assert not mismatch, f"advance {i} (now {now:.4f}): {mismatch}"
+        started += int(state.has_started.sum())
+        activated += int(state.active.sum())
+    assert int(state.cycle.min()) >= 1 and started > 0, (started, activated)
+
+
 def test_frame_pipeline_on_card_returns_each_frame_once_in_order(card):
     """Frames rendered on the card come back through pinned buffers in
     order, each once, while later frames are queued; a returned array is
@@ -1066,13 +1138,15 @@ def test_graphed_render_is_bit_equal_to_eager(card, case):
 
 def test_graphed_spray_session_is_bit_equal_through_a_restore(card):
     """8 advances, a checkpoint restored into a fresh session, 8 more: the
-    graphed sessions' states and attrs equal the eager sessions' bit for
-    bit."""
+    sessions' states and attrs with graphs on equal those inside
+    `graphs.disabled()` bit for bit; either way an advance is one launch of
+    the spray kernel, with no graph around it."""
     ocean, maps, scales = graph_scene(card)
     runs = {}
     for mode in ("graphed", "eager"):
         ctx = graphs.disabled() if mode == "eager" else contextlib.nullcontext()
         with ctx:
+            before = LAUNCHES["spray"]
             a = SpraySession(num_particles=4096, device=card)
             for _ in range(8):
                 a.advance(maps, scales, 0.3)
@@ -1080,6 +1154,7 @@ def test_graphed_spray_session_is_bit_equal_through_a_restore(card):
             b.restore(a.checkpoint())
             attrs = [b.advance(maps, scales, 0.3) for _ in range(8)]
             runs[mode] = (b.checkpoint()["state"], attrs)
+            assert LAUNCHES["spray"] - before == 16
     (gs, ga), (es, ea) = runs["graphed"], runs["eager"]
     assert all(torch.equal(gs[k], es[k]) for k in es)
     assert all(torch.equal(g[k], e[k]) for g, e in zip(ga, ea) for k in e)
@@ -1088,8 +1163,8 @@ def test_graphed_spray_session_is_bit_equal_through_a_restore(card):
 def test_graphed_batched_step_is_bit_equal_to_eager(card):
     """make_batched_step with K = 4 at 256^2 bf16, twice (the second call a
     replay): frames, state, spray state and the last maps equal the eager
-    step's bit for bit; K1 2 a tick, K5 and the splat chain 1 a tick, as
-    eagerly."""
+    step's bit for bit; K1 2 a tick, K5, the splat chain and the spray
+    kernel 1 a tick, as eagerly."""
     ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
     r = SceneRenderer(128, 72, **GRAPH_TIER)
     sp_params, sp_state = SpraySession(num_particles=2048, device=card).ensure_init()
@@ -1100,13 +1175,15 @@ def test_graphed_batched_step_is_bit_equal_to_eager(card):
         state, sps, clock, seq = ocean.state, sp_state, 0.0, []
         with ctx:
             for _ in range(2):
-                before = (LAUNCHES["fused_step"], LAUNCHES["tap"], LAUNCHES["splat"])
+                before = (LAUNCHES["fused_step"], LAUNCHES["tap"], LAUNCHES["splat"],
+                          LAUNCHES["spray"])
                 state, sps, frames, last = fn(state, ocean.params, sps, clock, ocean.water_color,
                                               ocean.foam_color, (0.0, 12.0, 0.0), -12.0, 0.0,
                                               70.0, 1 / 30)
                 torch.cuda.synchronize()
-                assert (LAUNCHES["fused_step"] - before[0], LAUNCHES["tap"] - before[1],
-                        LAUNCHES["splat"] - before[2]) == (8, 4, 4)
+                made = tuple(LAUNCHES[op] - n for op, n in
+                             zip(("fused_step", "tap", "splat", "spray"), before))
+                assert made == (8, 4, 4, 4)
                 clock += 4 / 30
                 seq.append((frames, state, sps, last))
         outs[mode] = seq
@@ -1118,6 +1195,45 @@ def test_graphed_batched_step_is_bit_equal_to_eager(card):
                    ("start_time", "cycle", "active", "base_scale"))
         assert torch.equal(gl.displacement, el.displacement) and torch.equal(gl.normal, el.normal)
     assert outs["graphed"][0][1].h0 is ocean.state.h0      # passed through, not copied
+
+
+def test_batched_step_with_the_spray_kernel_stays_close_to_sequential_frames(card):
+    """make_batched_step (K = 4) with the spray over 8 frames at 256^2 bf16,
+    against the sequential loop (update, spray advance, render a frame) from
+    one snapshot: frames within 1 uint8 step and >= 99.9 % of pixels equal
+    (the K-frame clock accumulates in fp32 on the device); one spray kernel
+    launch a tick."""
+    k, total, dt = 4, 8, 1 / 30
+    pose = ((0.0, 12.0, 0.0), -12.0, 0.0)
+    sessions = []
+    for _ in range(2):
+        ocean = T.Ocean(map_size=256, map_dtype="bfloat16", updates_per_second=0, device=card)
+        sessions.append((ocean, SpraySession(num_particles=4096, device=card)))
+    (seq_o, seq_s), (bat_o, bat_s) = sessions
+    for _ in range(12):
+        seq_s.advance(seq_o.update(dt), seq_o.params.map_scales(), dt)
+    bat_o.restore(seq_o.checkpoint())
+    bat_s.restore(seq_s.checkpoint())
+    r = SceneRenderer(128, 72, **GRAPH_TIER)
+    seq = []
+    for _ in range(total):
+        maps = seq_o.update(dt)
+        scales = seq_o.params.map_scales()
+        seq.append(r.render(maps, scales, seq_o.water_color, seq_o.foam_color, *pose,
+                            spray_attrs=seq_s.advance(maps, scales, dt)))
+    sp_params, sp_state = bat_s.ensure_init()
+    fn = make_batched_step(r, bat_o.config, sp_params, k)
+    state, clock, bat = bat_o.state, bat_s.clock, []
+    before = LAUNCHES["spray"]
+    for _ in range(total // k):
+        state, sp_state, frames, _ = fn(state, bat_o.params, sp_state, clock, bat_o.water_color,
+                                        bat_o.foam_color, *pose, 70.0, dt)
+        clock += k * dt
+        bat.extend(frames)
+    torch.cuda.synchronize()
+    assert LAUNCHES["spray"] - before == total and fn.program.num_graphs == 1
+    diff = (torch.stack(bat).short() - torch.stack(seq).short()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
 
 
 def test_graphed_sample_field_is_bit_equal_to_eager(card):

@@ -397,11 +397,12 @@ def test_the_frame_loop_counts_frames_waits_and_kernels_on_the_card(card):
     counters, spans = snap["counters"], snap["spans"]
     assert counters["pipeline.frames"] == 5 and spans["pipeline.wait"]["count"] == 5
     assert counters["pipeline.bytes"] == 5 * 128 * 72 * 3
-    assert spans["graph.launch"]["count"] == 8 and "graph.capture" not in spans
-    assert spans["kernel.fused_step"]["count"] == 4
+    assert spans["graph.launch"]["count"] == 4 and "graph.capture" not in spans
+    assert spans["kernel.fused_step"]["count"] == 4 and spans["kernel.spray"]["count"] == 4
     assert {k: v for k, v in counters.items() if k.startswith("launches.")} == {
-        "launches.fused_step": 8, "launches.tap": 4, "launches.splat": 4, "launches.fan": 4}
-    assert {("kernel.fused_step", "ocean.step"), ("graph.spray_step", "spray.advance"),
+        "launches.fused_step": 8, "launches.tap": 4, "launches.splat": 4, "launches.fan": 4,
+        "launches.spray": 4}
+    assert {("kernel.fused_step", "ocean.step"), ("kernel.spray", "spray.advance"),
             ("graph.render_spray", "render.frame")} <= {(r.name, r.parent)
                                                          for r in observability.spans()}
 
