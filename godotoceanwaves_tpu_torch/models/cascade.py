@@ -238,3 +238,21 @@ class SimConfig:
         if self.use_fused_step():
             return "fused"
         return "strip" if self.use_strip_step() else "staged"
+
+
+def size_groups(map_size: int | Sequence[int], num_cascades: int
+                ) -> tuple[tuple[int, tuple[int, ...]], ...]:
+    """The cascades grouped by map size: ((N, cascade indices), ...), a size
+    in the order it first appears. `map_size` is one size for every cascade
+    or a sequence of one size a cascade; each size is validated, and picks
+    its tier, by the `SimConfig` of its group."""
+    if isinstance(map_size, (int, np.integer)):
+        return ((int(map_size), tuple(range(num_cascades))),)
+    sizes = [int(n) for n in map_size]
+    if len(sizes) != num_cascades:
+        raise ValueError(f"map_size gives {len(sizes)} sizes for {num_cascades} cascades: "
+                         f"{tuple(sizes)}")
+    groups: dict[int, list[int]] = {}
+    for i, n in enumerate(sizes):
+        groups.setdefault(n, []).append(i)
+    return tuple((n, tuple(idx)) for n, idx in groups.items())

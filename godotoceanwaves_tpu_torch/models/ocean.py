@@ -28,12 +28,30 @@ compensation (water.gd:75-82), optional one-cascade-per-call staggering
 (wave_generator.gd:56-63), runtime cascade add/remove (`set_cascades`), the
 session's global water/foam colours and `checkpoint` / `restore`.
 
+A session may give each cascade a map size of its own
+(`Ocean(map_size=(1024, 256, 64))`, BASELINE config 3). Cascades of one
+size form a group, in the order the size first appears (`Ocean.groups`),
+with its own `SimConfig`, `OceanState` and params slice, and each update
+runs `step` once a group at the same dt, under the one session clock:
+cascade i starts at 120 + pi*i by its index in the session. `config`,
+`state` and `maps` are then tuples, one entry a group. A session whose
+cascades share one size is built as before and runs the same calls; which
+of the two a session is gets decided when it is built (`__init__`,
+`resize`, `set_cascades`), never in an update. On the card a mixed
+session records each group's `step` on K1 or K4 as a CUDA graph at its
+first update (`_GroupGraph`) and replays it after, bit for bit what the
+eager `step` gives. Consumers of stacked (C, ..., N, N) maps refuse a mixed session
+(`require_one_size`).
+
 Spans (`utils/observability.py`): `ocean.update` around every call,
 `ocean.regenerate` while a dirty cascade regenerates, `ocean.step` around a
 step's whole issue, and inside it `step.scalars` (the foam rates and the
-kernels' packed scalars) or `step.staged` (the staged tier's modules).
-Counters: `ocean.skipped` (the rate limiter returned None) and
-`ocean.regenerated` (cascades).
+kernels' packed scalars) or `step.staged` (the staged tier's modules); in a
+mixed session `ocean.step_group` around each group's `step` or replay,
+inside `ocean.step`, and `graph.capture` while a group's graph records.
+Counters: `ocean.skipped` (the rate limiter returned None),
+`ocean.regenerated` (cascades) and `ocean.step_groups` (a mixed session's
+groups stepped).
 """
 from __future__ import annotations
 
@@ -45,10 +63,11 @@ import torch
 
 from ..ops import fft, fused_step, initial_state, planes_fft, spectra, strip_step
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
+from ..utils import graphs
 from ..utils.observability import count, span
 from . import shading
 from .cascade import (CascadeParams, SimConfig, default_cascades, require_device,
-                      stack_cascades)
+                      size_groups, stack_cascades)
 
 # Cascade time offsets chosen so cascades don't interfere (water.gd:32).
 TIME_OFFSET_BASE = 120.0
@@ -133,15 +152,40 @@ def generate_omega(config: SimConfig, params: CascadeParams,
     return torch.from_numpy(planes).to(params.device)
 
 
-def init_state(config: SimConfig, params: CascadeParams) -> OceanState:
+def init_state(config: SimConfig, params: CascadeParams,
+               indices: Sequence[int] | None = None) -> OceanState:
     """Fresh state on the params' device: generated spectra, zero foam,
-    staggered time offsets."""
+    staggered time offsets. Cascade k starts at 120 + pi*i, with i its index
+    in the session: `indices[k]` (a size group's), k by default."""
     h0, h0nc = generate_spectrum(config, params)
     c, n, dev = params.num_cascades, config.map_size, params.device
-    time = TIME_OFFSET_BASE + TIME_OFFSET_STEP * torch.arange(c, dtype=torch.float32, device=dev)
+    at = (torch.arange(c, dtype=torch.float32, device=dev) if indices is None
+          else torch.tensor(list(indices), dtype=torch.float32, device=dev))
+    time = TIME_OFFSET_BASE + TIME_OFFSET_STEP * at
     return OceanState(h0=h0, h0nc=h0nc, omega=generate_omega(config, params),
                       foam=torch.zeros((c, n, n), dtype=torch.float32, device=dev),
                       time=time)
+
+
+def _regenerated(config: SimConfig, state: OceanState, params: CascadeParams,
+                 indices) -> OceanState:
+    """`state` with the spectra and omega of cascades `indices` generated
+    anew from `params` (all of them at once where `indices` names every
+    cascade). Writes new buffers: the state a step may still be reading is
+    never modified."""
+    if len(indices) == params.num_cascades:
+        h0, h0nc = generate_spectrum(config, params)
+        omega = generate_omega(config, params)
+    else:
+        h0, h0nc = state.h0.clone(), state.h0nc.clone()
+        omega = state.omega.clone()
+        for i in indices:
+            p = params.map(lambda x, i=int(i): x[i])
+            h0[int(i)], h0nc[int(i)] = generate_spectrum_one(config, p)
+        # omega tracks tile_length edits; one host plane per dirty cascade
+        omega[torch.as_tensor(np.asarray(indices, np.int64), device=omega.device)] = \
+            generate_omega(config, params, indices)
+    return state.replace(h0=h0, h0nc=h0nc, omega=omega)
 
 
 def _foam_rates(p: CascadeParams, dt):
@@ -294,6 +338,79 @@ def _zero_maps(config: SimConfig, c: int, device) -> OceanMaps:
         normal=torch.zeros((c, 4, n, n), dtype=dtype, device=device))
 
 
+class _GroupGraph:
+    """One size group's `step` as a CUDA graph, for a mixed session on the card.
+
+    Recorded from the state an eager `step` has just returned, so that the
+    caches it reads are filled. The graph reads the group's spectra, omega
+    and params slice where they are, dt from the session's one-element
+    buffer, and the foam and time from buffers of its own, which each replay
+    advances in place. A replay hands out copies, fresh tensors as `step`'s
+    are: the maps a caller holds stay as they were. A state whose foam or
+    time is not the one the last replay handed out (a restore, a stagger
+    round) is copied in first; one with other spectra, omega or params
+    (`fits`) needs a new recording. A state's tensors are replaced, never
+    edited in place: an in-place edit of the foam handed out is not seen.
+    """
+
+    def __init__(self, config: SimConfig, state: OceanState, params: CascadeParams,
+                 dt: torch.Tensor):
+        self.inputs = (state.h0, state.h0nc, state.omega, params)
+        self.foam, self.time = state.foam.clone(), state.time.clone()
+        self.handed = (state.foam, state.time)
+
+        def advance() -> OceanMaps:
+            new, maps = step(config, state.replace(foam=self.foam, time=self.time), params, dt)
+            self.foam.copy_(new.foam)
+            self.time.copy_(new.time)
+            return maps
+
+        self.recording = graphs.Recording(advance)
+
+    def fits(self, state: OceanState, params: CascadeParams) -> bool:
+        h0, h0nc, omega, p = self.inputs
+        return (state.h0 is h0 and state.h0nc is h0nc and state.omega is omega
+                and params is p)
+
+    def __call__(self, state: OceanState) -> tuple[OceanState, OceanMaps]:
+        if state.foam is not self.handed[0]:
+            self.foam.copy_(state.foam)
+        if state.time is not self.handed[1]:
+            self.time.copy_(state.time)
+        self.recording.replay()
+        maps = self.recording.outputs
+        foam, time = self.foam.clone(), self.time.clone()
+        self.handed = (foam, time)
+        return (OceanState(h0=state.h0, h0nc=state.h0nc, omega=state.omega, foam=foam,
+                           time=time),
+                OceanMaps(displacement=maps.displacement.clone(), normal=maps.normal.clone()))
+
+
+def _group_size(value) -> int:
+    """The map size of one size group's `SimConfig`, `OceanState` or `OceanMaps`."""
+    if isinstance(value, SimConfig):
+        return value.map_size
+    return int((value.foam if isinstance(value, OceanState) else value.displacement).shape[-1])
+
+
+def require_one_size(value, consumer: str) -> None:
+    """Raise ValueError where `value` comes from a mixed-size session: an
+    `Ocean` whose cascades differ in map size, or such a session's `maps`,
+    `state` or `config` (a tuple, one entry a size group). The message names
+    `consumer` and the sizes. Every consumer of stacked (C, ..., N, N) maps
+    calls it on what it is handed."""
+    if isinstance(value, Ocean):
+        if len(value.groups) == 1:
+            return
+        sizes = value.map_sizes
+    elif isinstance(value, (tuple, list)):
+        sizes = tuple(_group_size(v) for v in value)
+    else:
+        return
+    raise ValueError(f"{consumer} takes cascades of one map size, stacked (C, ..., N, N); "
+                     f"this session's map sizes are {', '.join(f'{n}x{n}' for n in sizes)}")
+
+
 class Ocean:
     """Host-side session: the `Water` orchestrator (water.gd).
 
@@ -301,15 +418,28 @@ class Ocean:
     updates_per_second scheduler and (optionally) cascade staggering.
     `device` defaults to "cuda" and is never silently replaced.
 
+    `map_size` is one size for every cascade, or a sequence of one size a
+    cascade: cascades of equal size then form a group (`groups`) with its
+    own `SimConfig`, `OceanState`, params slice and `OceanMaps`, and
+    `config`, `state` and `maps` are tuples in group order (see the module
+    docstring). Equal sizes build the one-size session.
+
     >>> ocean = Ocean(map_size=256, device="cuda")
     >>> maps = ocean.update(1 / 60)          # None on skipped frames
     >>> ocean.set_cascade(0, wind_speed=15)  # marks cascade 0 dirty
+    >>> mixed = Ocean(map_size=(1024, 256, 64), device="cuda")
+    >>> big, mid, small = mixed.update(1 / 50)   # one OceanMaps a size group
     """
+
+    # A mixed session's forms of the methods an update runs, bound on the
+    # instance in place of the one-size forms when the session is built
+    # (`_build`), so that a one-size update runs no test of which it is.
+    _GROUP_FORMS = {"_update_water": "_update_groups", "_refresh": "_refresh_groups"}
 
     def __init__(
         self,
         params: CascadeParams | Sequence[CascadeParams] | None = None,
-        map_size: int = 1024,
+        map_size: int | Sequence[int] = 1024,
         updates_per_second: float = 50.0,
         stagger: bool = False,
         device: torch.device | str = "cuda",
@@ -320,7 +450,8 @@ class Ocean:
             params = default_cascades(device=self.device)
         elif isinstance(params, (list, tuple)):
             params = stack_cascades(params)
-        self.config = SimConfig(map_size=map_size, **config_kwargs)
+        groups = size_groups(map_size, params.num_cascades)
+        self.config = SimConfig(map_size=groups[0][0], **config_kwargs)
         self.params = params.to(self.device)
         # Global water/foam colours (water.gd:14-18): project-wide shader
         # globals in the reference (project.godot:60-81); the session owns the
@@ -333,15 +464,70 @@ class Ocean:
         self._next_update_time = 0.0
         self.updates_per_second = updates_per_second
         self.stagger = stagger
-        self.state = init_state(self.config, self.params)
         self._dirty = np.zeros(self.params.num_cascades, bool)
         self._pending: list[int] = []   # cascades awaiting refresh this round
         self._round_dt = 0.0            # the armed round's foam-rate dt
-        self.maps = _zero_maps(self.config, self.num_cascades, self.device)
+        self._build(groups)
+
+    def _build(self, groups) -> None:
+        """Config, fresh state and zero map buffers for the size groups
+        `groups` (`size_groups`); the config's other fields carry over. One
+        group builds the one-size session; more bind the group forms
+        (`_GROUP_FORMS`)."""
+        base = self.config if isinstance(self.config, SimConfig) else self.config[0]
+        self._groups = groups
+        self._graphs = []               # a mixed session's recordings, one a group
+        if len(groups) == 1:
+            self.config = dataclasses.replace(base, map_size=groups[0][0])
+            self.state = init_state(self.config, self.params)
+            self.maps = _zero_maps(self.config, self.num_cascades, self.device)
+            self._group_params = None
+            for name in self._GROUP_FORMS:
+                self.__dict__.pop(name, None)
+            return
+        self.config = tuple(dataclasses.replace(base, map_size=n) for n, _ in groups)
+        self._group_params = self._params_by_group()
+        self.state = tuple(init_state(c, p, idx) for c, p, (_, idx)
+                           in zip(self.config, self._group_params, groups))
+        self.maps = tuple(_zero_maps(c, len(idx), self.device)
+                          for c, (_, idx) in zip(self.config, groups))
+        self._graphs = [None] * len(groups)    # recorded at each group's first update
+        self._dt = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._dt_value = None
+        for name, form in self._GROUP_FORMS.items():
+            setattr(self, name, getattr(self, form))
+
+    def _params_by_group(self, cascade: int | None = None) -> tuple[CascadeParams, ...]:
+        """Each group's slice of `params`; with `cascade`, only the slice of
+        its group is cut anew and the others are kept, so their graphs still
+        fit (`_GroupGraph.fits`)."""
+        out = []
+        for g, (_, idx) in enumerate(self._groups):
+            if cascade is not None and cascade not in idx:
+                out.append(self._group_params[g])
+                continue
+            at = torch.as_tensor(idx, device=self.device)
+            out.append(self.params.map(lambda x: x[at]))
+        return tuple(out)
 
     @property
     def num_cascades(self) -> int:
         return self.params.num_cascades
+
+    @property
+    def groups(self) -> tuple[tuple[int, tuple[int, ...]], ...]:
+        """The size groups, ((map_size, cascade indices), ...): one for a
+        one-size session."""
+        return self._groups
+
+    @property
+    def map_sizes(self) -> tuple[int, ...]:
+        """Each cascade's map size, by cascade index."""
+        sizes = [0] * self.num_cascades
+        for n, idx in self._groups:
+            for i in idx:
+                sizes[i] = n
+        return tuple(sizes)
 
     @property
     def updates_per_second(self) -> float:
@@ -378,6 +564,8 @@ class Ocean:
             if name in self._SPECTRUM_FIELDS:
                 self._dirty[index] = True
         self.params = self.params.replace(**new)
+        if self._group_params is not None:
+            self._group_params = self._params_by_group(index)
 
     def set_cascades(self, params: CascadeParams | Sequence[CascadeParams],
                      reseed: bool = True) -> None:
@@ -387,43 +575,44 @@ class Ocean:
         draws a fresh spectrum seed from the session RNG and restarts at
         time 120 + pi*i (water.gd:31-32); spectra, foam and map buffers
         rebuild. reseed=False keeps the given seeds (times still restart).
+        A one-size session keeps its size; a mixed one keeps each cascade's
+        (the new stack must have as many cascades; `resize` first to change
+        the count).
         """
         if isinstance(params, (list, tuple)):
             params = stack_cascades(params)
         params = params.to(self.device)
         c = params.num_cascades
+        groups = size_groups(self._groups[0][0] if len(self._groups) == 1 else self.map_sizes, c)
         if reseed:
             seeds = self._rng.randint(-10000, 10001, (c, 2))
             params = params.replace(spectrum_seed=torch.as_tensor(
                 seeds, dtype=torch.int32, device=self.device))
         self.params = params
-        self.state = init_state(self.config, params)
         self._dirty = np.zeros(c, bool)
         self._pending = []
-        self.maps = _zero_maps(self.config, c, self.device)
+        self._build(groups)
 
     def regenerate_dirty(self) -> None:
         """Re-run spectrum generation for DIRTY cascades only
-        (wave_generator.gd:67-72). Writes new buffers: the state a step may
-        still be reading is never modified."""
+        (wave_generator.gd:67-72), a size group at a time in a mixed
+        session. Writes new buffers: the state a step may still be reading
+        is never modified."""
         idxs = np.nonzero(self._dirty)[0]
         if idxs.size == 0:
             return
         count("ocean.regenerated", int(idxs.size))
         with span("ocean.regenerate"):
-            if idxs.size == self.num_cascades:
-                h0, h0nc = generate_spectrum(self.config, self.params)
-                omega = generate_omega(self.config, self.params)
+            if self._group_params is None:
+                self.state = _regenerated(self.config, self.state, self.params, idxs)
             else:
-                h0, h0nc = self.state.h0.clone(), self.state.h0nc.clone()
-                omega = self.state.omega.clone()
-                for i in idxs:
-                    p = self.params.map(lambda x, i=int(i): x[i])
-                    h0[int(i)], h0nc[int(i)] = generate_spectrum_one(self.config, p)
-                # omega tracks tile_length edits; one host plane per dirty cascade
-                omega[torch.as_tensor(idxs, device=self.device)] = generate_omega(
-                    self.config, self.params, idxs)
-            self.state = self.state.replace(h0=h0, h0nc=h0nc, omega=omega)
+                states = list(self.state)
+                for g, (_, members) in enumerate(self._groups):
+                    local = [k for k, i in enumerate(members) if self._dirty[i]]
+                    if local:
+                        states[g] = _regenerated(self.config[g], states[g],
+                                                 self._group_params[g], local)
+                self.state = tuple(states)
             self._dirty[:] = False
 
     # --- per-frame driving (water.gd:75-82 scheduler semantics) ---
@@ -483,29 +672,92 @@ class Ocean:
             normal[idx] = nm
             self.maps = OceanMaps(displacement=disp, normal=normal)
 
-    def resize(self, map_size: int, clear_jit_caches: bool = True) -> None:
+    def _update_groups(self, dt: float) -> tuple[OceanMaps, ...]:
+        """`_update_water` of a mixed session: `step` on each size group at
+        the same dt (stagger: the round's refreshes, each in its group)."""
+        self.regenerate_dirty()
+        if not self.stagger:
+            with span("ocean.step"):
+                states, maps = [], []
+                for g, (config, state, params) in enumerate(
+                        zip(self.config, self.state, self._group_params)):
+                    count("ocean.step_groups")
+                    with span("ocean.step_group"):
+                        state, m = self._step_group(g, config, state, params, dt)
+                    states.append(state)
+                    maps.append(m)
+                self.state, self.maps = tuple(states), tuple(maps)
+            return self.maps
+        if self._pending:
+            self._refresh(self._pending, self._round_dt)
+        self.state = tuple(s.replace(time=s.time + _f32(dt)) for s in self.state)
+        self._round_dt = dt
+        self._pending = list(range(self.num_cascades))
+        self._refresh([self._pending.pop(0)], dt)
+        return self.maps
+
+    def _step_group(self, g: int, config: SimConfig, state: OceanState,
+                    params: CascadeParams, dt: float) -> tuple[OceanState, OceanMaps]:
+        """`step` of size group `g`: its graph's replay where the graph fits
+        the group's state and params, else an eager `step`, after which a
+        group on the card records its graph (`_GroupGraph`) for the next
+        update. Not on the card, inside `graphs.disabled()`, or on the staged
+        tier (`fused="never"`, whose modules do not record), always eager."""
+        graph = self._graphs[g]
+        if graph is not None and graphs.enabled() and graph.fits(state, params):
+            dt = _f32(dt)
+            if dt != self._dt_value:
+                self._dt.fill_(dt)
+                self._dt_value = dt
+            return graph(state)
+        state, maps = step(config, state, params, dt)
+        if state.foam.is_cuda and graphs.enabled() and config.step_tier() != "staged":
+            self._graphs[g] = None      # the old recording's pool goes before the new one's
+            self._graphs[g] = _GroupGraph(config, state, params, self._dt)
+        return state, maps
+
+    def _refresh_groups(self, indices: Sequence[int], dt: float) -> None:
+        """`_refresh` of a mixed session: each group refreshes its cascades
+        among `indices` into its own map buffers."""
+        with span("ocean.step"):
+            states, maps = list(self.state), list(self.maps)
+            for g, (_, members) in enumerate(self._groups):
+                local = [members.index(i) for i in indices if i in members]
+                if not local:
+                    continue
+                states[g], d, nm = refresh_cascades(self.config[g], states[g],
+                                                    self._group_params[g], dt, local)
+                idx = torch.as_tensor(np.asarray(local, np.int64), device=self.device)
+                disp, normal = maps[g].displacement.clone(), maps[g].normal.clone()
+                disp[idx] = d
+                normal[idx] = nm
+                maps[g] = OceanMaps(displacement=disp, normal=normal)
+            self.state, self.maps = tuple(states), tuple(maps)
+
+    def resize(self, map_size: int | Sequence[int], clear_jit_caches: bool = True) -> None:
         """Change the map resolution: full state rebuild, params preserved
-        (the reference's map_size setter, water.gd:38-41).
+        (the reference's map_size setter, water.gd:38-41). A sequence gives
+        one size a cascade, as in the constructor.
 
         `clear_jit_caches` is accepted for the JAX package's callers and
         ignored: PyTorch runs eagerly and keeps no compiled executables
         per shape.
         """
-        self.config = dataclasses.replace(self.config, map_size=map_size)
-        self.state = init_state(self.config, self.params)
+        self._build(size_groups(map_size, self.num_cascades))
         self._dirty[:] = False
         self._pending = []
-        self.maps = _zero_maps(self.config, self.num_cascades, self.device)
 
     # --- checkpoint / resume (SURVEY.md section 5.4) ---
 
     def checkpoint(self) -> dict[str, Any]:
         """Snapshot of all cross-frame state: the state and params as CPU
         tensors (the fp32 planes as they are; no complex leaves), the
-        scheduler and the colours."""
+        scheduler and the colours. A mixed session's `map_size` is the list
+        of each cascade's size and its `state` the tuple of its groups'."""
         from ..utils.hostio import device_get_tree
         return {
-            "map_size": self.config.map_size,
+            "map_size": (self._groups[0][0] if len(self._groups) == 1
+                         else list(self.map_sizes)),
             "num_cascades": self.num_cascades,
             "state": device_get_tree(self.state),
             "params": device_get_tree(self.params),
@@ -520,20 +772,22 @@ class Ocean:
     def restore(self, snapshot: dict[str, Any]) -> None:
         """Restore a `checkpoint()` snapshot onto this session's device.
 
-        Raises if the cascade count differs; resizes if the map size does.
+        Raises if the cascade count differs; resizes if a map size does.
         The persistent map buffers reset to zeros.
         """
         from ..utils.hostio import device_put_tree
-        size = snapshot.get("map_size", self.config.map_size)
+        size = snapshot.get("map_size")
         cascades = snapshot.get("num_cascades", self.num_cascades)
         if cascades != self.num_cascades:
             raise ValueError(
                 f"snapshot has {cascades} cascades, session has "
                 f"{self.num_cascades}; rebuild the Ocean with matching params")
-        if size != self.config.map_size:
+        if size is not None and size_groups(size, self.num_cascades) != self._groups:
             self.resize(size)
         self.state = device_put_tree(snapshot["state"], self.device)
         self.params = device_put_tree(snapshot["params"], self.device)
+        if self._group_params is not None:
+            self._group_params = self._params_by_group()
         self._time = snapshot["time"]
         self._next_update_time = snapshot["next_update_time"]
         self._pending = list(snapshot.get("pending", []))
@@ -543,4 +797,8 @@ class Ocean:
         if "foam_color" in snapshot:
             self.foam_color = np.asarray(snapshot["foam_color"], np.float32)
         self._dirty[:] = False
-        self.maps = _zero_maps(self.config, self.num_cascades, self.device)
+        if self._group_params is None:
+            self.maps = _zero_maps(self.config, self.num_cascades, self.device)
+        else:
+            self.maps = tuple(_zero_maps(c, len(idx), self.device)
+                              for c, (_, idx) in zip(self.config, self._groups))

@@ -37,6 +37,7 @@ from . import geometry, shading, spray
 from .cascade import require_device
 from ..utils import graphs
 from ..utils.observability import count, span
+from .ocean import require_one_size
 
 # --- render quality tiers ---------------------------------------------------
 # The JAX package's presets (its viewport.py:37-43; there timed on a TPU,
@@ -223,7 +224,9 @@ class SceneRenderer:
         20-170 slider, main.gd:113-114). Reads nothing back to the host.
         On the card the frame is a copy of the graph's output: the next
         call does not overwrite it (the JAX package returns a new array a
-        call too)."""
+        call too). The maps of a mixed-size session are refused
+        (`ocean.require_one_size`)."""
+        require_one_size(maps, "SceneRenderer.render")
         with span("render.frame"):
             args = _frame_args(self._host, maps.displacement.device, water_color, foam_color,
                                pos, pitch, yaw, fov)
@@ -333,7 +336,9 @@ class SpraySession:
     def advance(self, maps, scales, dt: float) -> dict:
         """Step the particle state machine by dt -> billboard attrs dict
         (feed to SceneRenderer.render(spray_attrs=...)); on the card the
-        clock's fill and one launch of the spray kernel."""
+        clock's fill and one launch of the spray kernel. The maps of a
+        mixed-size session are refused (`ocean.require_one_size`)."""
+        require_one_size(maps, "SpraySession.advance")
         with span("spray.advance"):
             params, state = self.ensure_init()
             self.clock += dt
@@ -390,9 +395,11 @@ def make_batched_step(renderer: SceneRenderer, config, spray_params, num_frames:
     stacks ``num_frames`` wire-format frames on axis 0 and ``last_maps`` is
     the final tick's OceanMaps; none of them is overwritten by the next
     call. Pass ``spray_params=None`` to drop the spray (then ``spray_state``
-    is None and returns None).
+    is None and returns None). A mixed-size session's config (a tuple) is
+    refused.
     """
     from .ocean import OceanMaps, step_frames
+    require_one_size(config, "make_batched_step")
 
     def frames(state, params, spray_state, clock, wc, fc, pos, pitch, yaw, fov, dt):
         state, stacked = step_frames(config, state, params, dt, num_frames)

@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from ..models.cascade import CascadeParams, SimConfig, require_device
 from ..models.ocean import (OceanMaps, OceanState, TIME_OFFSET_BASE, TIME_OFFSET_STEP,
+                            require_one_size,
                             _f32, _foam_rates, generate_spectrum_one, step as step_one)
 from ..ops import rows_fft, spectra
 from ..ops import modulate as modulate_ops, unpack as unpack_ops
@@ -283,7 +284,9 @@ class Sharded:
 
 def shard_state(mesh: Mesh, state: OceanState) -> Sharded:
     """Place a global state (h0/h0nc (P, C, 2, N, N), omega/foam (P, C, N, N),
-    time (P, C)) onto the mesh: the calling process's positions."""
+    time (P, C)) onto the mesh: the calling process's positions. A mixed-size
+    session's state (a tuple) is refused."""
+    require_one_size(state, "shard_state")
     p_dev, r_dev = mesh.devices.shape
     tensors = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     patches = next(iter(tensors.values())).shape[0]
@@ -443,8 +446,10 @@ def make_multichip_init(mesh: Mesh, config: SimConfig):
 
     Each position generates its own rows of h0/h0nc; the dispersion plane
     omega is computed on the host in NumPy (spectra.dispersion_grid_host),
-    as the unsharded `init_state` does.
+    as the unsharded `init_state` does. A mixed-size session's config (a
+    tuple) is refused.
     """
+    require_one_size(config, "make_multichip_init")
     n = config.map_size
     rl = _rows_local(mesh, config)
 
@@ -500,8 +505,10 @@ def make_multichip_step(mesh: Mesh, config: SimConfig):
     position copies its patches of it to its device. A process computes its
     own positions (every process holds the whole params, as JAX replicates
     them); a rows group spanning processes exchanges collectively, so every
-    process of a multi-process mesh steps together.
+    process of a multi-process mesh steps together. A mixed-size session's
+    config (a tuple) is refused.
     """
+    require_one_size(config, "make_multichip_step")
     r_dev = mesh.devices.shape[1]
     rl = _rows_local(mesh, config)
     map_dtype = config.resolved_map_dtype()
@@ -573,10 +580,12 @@ def render_geometry_sharded(mesh: Mesh, maps: OceanMaps, map_scales: torch.Tenso
     device. On a multi-process mesh each process renders the bands of its
     own positions and the bands are all-gathered (collective): every process
     returns the whole image, on the device of its first position. `maps`
-    is the same in every process.
+    is the same in every process. A mixed-size session's maps (a tuple) are
+    refused.
     """
     from ..models import geometry
 
+    require_one_size(maps, "render_geometry_sharded")
     if axes is None:
         names = tuple(mesh.axis_names)
     elif isinstance(axes, str):

@@ -24,6 +24,10 @@ copies of the arguments into the graph's input buffers.
   (state passed through), which comes back as the caller's own tensor.
 - On CPU tensors `fn` runs as it is; `disabled()` runs it eagerly on the
   card too (`jax.disable_jit()`).
+- `Recording(fn)` is one capture with no key, no warm-up run and no copies,
+  for a caller that keeps the graph's inputs in buffers of its own and
+  copies out what it hands on (a mixed session's group step,
+  `models/ocean.py` `_GroupGraph`).
 - Launch counts (`ops/_build.py` `LAUNCHES`): a launch recorded during a
   capture is not made, so it goes to the capture's tally
   (`_build.recording`); every replay counts the tally (`_build.made`).
@@ -234,6 +238,35 @@ class Graphed:
     @property
     def num_graphs(self) -> int:
         return len(self._graphs)
+
+
+class Recording:
+    """`fn()` recorded once as a CUDA graph on the current device, for a
+    caller that keeps the graph's inputs in buffers of its own.
+
+    There is no warm-up run: the caller has run the same work eagerly just
+    before, so every cache the capture reads is filled. `outputs` is what
+    `fn` returned under capture: the graph's own buffers, which every replay
+    rewrites. `replay()` launches the graph and counts its capture's
+    launches (`_build.made`). Cached constants read under capture (`keep`)
+    are held as a `Graphed` graph holds them. The graph has a memory pool
+    of its own, freed with it."""
+
+    def __init__(self, fn):
+        self.graph, capture = torch.cuda.CUDAGraph(), _Capture()
+        with span("graph.capture"), _capture_lock:
+            _state.capture = capture
+            try:
+                with _build.recording(capture.tally), torch.cuda.graph(
+                        self.graph, capture_error_mode="thread_local"):
+                    self.outputs = fn()
+            finally:
+                _state.capture = None
+        self.tally, self.kept = capture.tally, capture.kept
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.made(self.tally)
 
 
 def graphed(fn, pool: Pool | None = None) -> Graphed:

@@ -116,6 +116,8 @@ class LiveViewer:
                  view: str = "3d", mesh_quality: str = "low",
                  spray: bool = False, spray_particles: int = 32768):
         from ..models.camera import FlyCamera
+        from ..models.ocean import require_one_size
+        require_one_size(ocean, "LiveViewer")
         self.ocean = ocean
         self.dt = 1.0 / fps
         self.cols, self.rows = cols, rows

@@ -272,9 +272,9 @@ def panel(ocean: Any, stats: FrameStats | None = None) -> str:
         s = stats.summary()
         lines.append(f"FPS: {s['fps']:7.1f}  ({s['ms_mean']:.2f} ms mean, "
                      f"p99 {s['ms_p99']:.2f} ms)")
-    cfg = ocean.config
-    lines.append(f"Wave Resolution: {cfg.map_size}x{cfg.map_size}   "
-                 f"Step: {cfg.step_tier()}   maps: {cfg.map_dtype}")
+    cfgs = ocean.config if isinstance(ocean.config, tuple) else (ocean.config,)  # mixed sizes
+    lines.append(f"Wave Resolution: {', '.join(f'{c.map_size}x{c.map_size}' for c in cfgs)}   "
+                 f"Step: {'/'.join(c.step_tier() for c in cfgs)}   maps: {cfgs[0].map_dtype}")
     lines.append(f"Updates/s: {ocean.updates_per_second}   "
                  f"stagger: {ocean.stagger}")
     fields = {name: getattr(ocean.params, name).detach().cpu().numpy()

@@ -15,6 +15,9 @@ the bytes of an fp32 upcast.
 Spans: `stream.step`, `stream.copy_issue`, `stream.wait` (the copy's event)
 and `stream.convert` (the host conversion, one a frame); counters:
 `stream.d2h_bytes` (copied from the card) and `stream.host_bytes` (yielded).
+
+The maps of a mixed-size session (one `OceanMaps` a size group) are refused
+with a ValueError that names the sizes (`ocean.require_one_size`).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..models.ocean import OceanMaps
+from ..models.ocean import OceanMaps, require_one_size
 from .observability import count, span
 
 _FIELDS = ("displacement", "normal")
@@ -36,6 +39,7 @@ def preview_maps(maps: OceanMaps | None) -> OceanMaps | None:
     None, so a rate-limited step passes through."""
     if maps is None:
         return None
+    require_one_size(maps, "preview_maps")
     cut = lambda x: x[..., ::2, ::2].to(torch.bfloat16).contiguous()
     return OceanMaps(displacement=cut(maps.displacement), normal=cut(maps.normal))
 
@@ -110,6 +114,7 @@ class MapStreamer:
                     maps = self._step()
                 if maps is None:        # rate-limiter skipped this frame
                     continue
+                require_one_size(maps, "MapStreamer")
                 with span("stream.copy_issue"):
                     inflight.append(self._start_copy(maps, produced % self._max_inflight))
                 produced += 1

@@ -401,6 +401,8 @@ class WebViewer:
                  transfer: str = "auto", render_tier: str = "interactive",
                  render_scale: int = 1, frame_batch: int = 1,
                  specular_aa: bool = False):
+        from ..models.ocean import require_one_size
+        require_one_size(ocean, "WebViewer")
         self.ocean = ocean
         # K-frame batching (models/viewport.make_batched_step): one call
         # advances K sim ticks and renders all K frames. Active only when

@@ -1085,6 +1085,93 @@ def test_session_subset_paths_on_card_match_cpu(card, stagger):
     assert LAUNCHES["fused_step"] > before
 
 
+def test_mixed_size_session_on_card_matches_cpu(card):
+    """BASELINE config 3 on the card: one `Ocean` over 1024^2, 256^2 and
+    64^2 (bf16 maps), each size group on K1, against the same session on
+    the CPU route, a group at a time, update by update. K1's launch tally
+    reads a pair a group an update (6), and `ocean.step_group` 3 spans an
+    update under `tracing()`: the first update's eager steps and every later
+    update's graph replays alike."""
+    from godotoceanwaves_tpu_torch.utils import observability
+    sessions = [T.Ocean(map_size=(1024, 256, 64), map_dtype="bfloat16", updates_per_second=0,
+                        device=d) for d in (card, "cpu")]
+    gpu, cpu = sessions
+    assert [c.step_tier() for c in gpu.config] == ["fused"] * 3
+    updates = 4
+    before = LAUNCHES["fused_step"]
+    observability.reset()
+    for _ in range(updates):
+        with observability.tracing():
+            gpu.update(0.02)
+        cpu.update(0.02)
+        for g, (n, idx) in enumerate(gpu.groups):
+            got, want = gpu.maps[g], cpu.maps[g]
+            assert got.displacement.shape == (len(idx), 3, n, n)
+            assert torch.equal(gpu.state[g].time.cpu(), cpu.state[g].time)
+            assert_close((got.displacement, got.normal, gpu.state[g].foam),
+                         (want.displacement, want.normal, cpu.state[g].foam), two_byte=True)
+    snap = observability.snapshot()
+    assert LAUNCHES["fused_step"] - before == 6 * updates
+    assert snap["counters"]["launches.fused_step"] == 6 * updates
+    assert snap["counters"]["ocean.step_groups"] == 3 * updates
+    assert snap["spans"]["ocean.step_group"]["count"] == 3 * updates
+
+
+@pytest.mark.parametrize("sizes,options", [((1024, 256, 64), {}), ((64, 2048, 64), {}),
+                                           ((128, 64, 128), {"fused": "never"})],
+                         ids=["fused", "strip", "staged"])
+def test_mixed_session_graphs_are_bit_equal_to_eager(card, sizes, options):
+    """A mixed session on the card records each group's step at its first
+    update and replays it after: every update's maps, foam and time equal,
+    bit for bit, those of the same session under `graphs.disabled()`, at
+    two dts, across a `set_cascade` (the edited group records anew, the
+    others keep their recordings), two
+    stagger updates (eager, then copied back in) and a checkpoint/restore.
+    Maps handed out earlier stay as they were, and K1 counts a pair a group
+    an update. Groups on the staged tier record no graph and stay eager."""
+    sessions = [T.Ocean(map_size=sizes, map_dtype="bfloat16", updates_per_second=0,
+                        device=card, **options) for _ in range(2)]
+    graph, eager = sessions
+    held, kept = [], []
+    for k, dt in enumerate([0.02, 0.02, 1 / 60, 1 / 60, 0.02, 0.02, 0.02, 1 / 60, 0.02]):
+        if k == 3:
+            for o in sessions:
+                o.set_cascade(len(sizes) - 1, wind_speed=21.0)
+            recorded = list(graph._graphs)
+        if k in (5, 6):
+            for o in sessions:
+                o.stagger = k == 5
+        if k == 7:
+            snap = graph.checkpoint()
+            graph.update(0.02)
+            graph.restore(snap)
+            eager.restore(eager.checkpoint())
+        before = LAUNCHES["fused_step"]
+        maps = graph.update(dt)
+        if not graph.stagger and all(c.step_tier() == "fused" for c in graph.config):
+            assert LAUNCHES["fused_step"] - before == 2 * len(graph.groups)
+        with graphs.disabled():
+            want = eager.update(dt)
+        for g in range(len(graph.groups)):
+            for a, b in ((maps[g].displacement, want[g].displacement),
+                         (maps[g].normal, want[g].normal),
+                         (graph.state[g].foam, eager.state[g].foam),
+                         (graph.state[g].time, eager.state[g].time)):
+                assert torch.equal(a, b), (k, g)
+        if k == 3:
+            edited = [len(sizes) - 1 in idx and c.step_tier() != "staged"
+                      for c, (_, idx) in zip(graph.config, graph.groups)]
+            assert [r is not graph._graphs[g] for g, r in enumerate(recorded)] == edited
+        held.append(maps)
+        kept.append([(m.displacement.clone(), m.normal.clone()) for m in maps])
+    assert [r is not None for r in graph._graphs] == [c.step_tier() != "staged"
+                                                      for c in graph.config]
+    assert all(r is None for r in eager._graphs)
+    for maps, copies in zip(held, kept):
+        for m, (d, n) in zip(maps, copies):
+            assert torch.equal(m.displacement, d) and torch.equal(m.normal, n)
+
+
 # --- the captured frame programs (utils/graphs.py) against graphs.disabled() --
 
 def graph_scene(dev, n: int = 128):
